@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (oryx_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing JSON lines:
+
+1. environment: the card, its power limit, and the build of every CUDA
+   kernel from the sources in this checkout (one nvcc per source, together);
+2. kernels: each hand-written kernel held against its plain PyTorch version
+   on the card at the serving shapes and at the edge cases, with its time
+   (CUDA events, median of 20 launches after warm-up), the plain version's,
+   one library call's (torch.matmul + torch.topk, timed only) and the least
+   time the card could take (H100 SXM data sheet peaks);
+3. serving (the main path): a synthetic ALS model of 1M items x 50 features
+   and 100k users, written as a model artifact and loaded by
+   ALSServingModelManager from a MODEL-REF message, answers 2,048 concurrent
+   top_n_async requests in each of score-mode exact and quantized. Kernel
+   launch counts are zeroed just before and read just after. Recall@10 is
+   held against an exact float64 ranking; then 100 UP messages, one of which
+   plants a new best item for a probed user, go through the delta resync
+   (scatter_rows on the card) and the new item must be served.
+
+The second-to-last line is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}. Any failed check raises, so the script exits
+non-zero; without CUDA it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+SEED = 20240611
+N_ITEMS, N_USERS, FEATURES = 1_000_000, 100_000, 50
+N_REQUESTS, HOW_MANY, KNOWN_PER_USER = 2048, 10, 5
+N_UPDATES = 100
+MIN_RECALL = {"exact": 0.99, "quantized": 0.95}  # ml/quality.py MIN_SCORE_MODE_RECALL
+FLOAT_TOL = 1e-3  # atol and rtol: bf16 products summed in another order
+
+# H100 SXM data sheet (dense): device memory rate and peak rates by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+
+KERNEL_SOURCE = "oryx_tpu_torch/ops/csrc/topk_dot.cu"
+REPLACES = "oryx_tpu/ops/pallas_topk.py:159"  # _topk_kernel (both variants)
+MERGE_REPLACES = "oryx_tpu/ops/pallas_topk.py:123"  # _merge_top
+
+# (name, B, I, F, k, duplicated rows)
+CASES = [
+    ("serving", 512, 1_000_000, 50, 32, 1),
+    ("large-batch", 4096, 1_000_000, 50, 32, 1),
+    # a full queue's group, as the batcher now dispatches it: unpadded
+    ("queued-batch", 2047, 1_000_000, 50, 32, 1),
+    ("wide", 64, 1_000_000, 250, 128, 1),
+    ("single-row", 1, 1_000_000, 50, 10, 1),
+    ("ragged", 13, 777, 33, 5, 1),
+    ("fewer-items-than-k", 4, 6, 16, 10, 1),
+    ("ties", 37, 50_000, 16, 25, 5),
+]
+BIG_ITEMS = 100_000  # time the plain and library forms only at or above
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of fn over reps launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_ops: float, type_name: str) -> tuple[float, str]:
+    """(least ms, what bounds it) for n_bytes moved and n_ops done."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[type_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def agree(torch, v, i, v_ref, i_ref, true_score, exact: bool) -> dict:
+    """Hold kernel output (v, i) against the plain version's. int8: bit
+    equality. Float: values within FLOAT_TOL, and where indices differ the
+    kernel's item must truly score within FLOAT_TOL of the plain version's
+    score at that slot (a near-tie resolved the other way)."""
+    check(v.shape == v_ref.shape and i.shape == i_ref.shape, "shapes differ")
+    pad, pad_ref = torch.isinf(v), torch.isinf(v_ref)
+    check(torch.equal(pad, pad_ref), "-inf padding differs")
+    check(torch.equal(i[pad], i_ref[pad]), "padding indices differ")
+    fin = ~pad
+    err = (v[fin] - v_ref[fin]).abs().max().item() if fin.any() else 0.0
+    mism = int((i != i_ref).sum().item())
+    if exact:
+        check(torch.equal(v, v_ref), f"int8 values differ (max {err})")
+        check(mism == 0, f"int8 indices differ at {mism} slots")
+        return {"max_abs_err": err, "index_mismatches": 0}
+    torch.testing.assert_close(v, v_ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    if mism:
+        where = tuple((i != i_ref).nonzero().T)  # ([split,] row, slot)
+        ref = v_ref[where]
+        gap = (true_score(where[-2], i[where]) - ref).abs()
+        check(bool((gap <= FLOAT_TOL + FLOAT_TOL * ref.abs()).all()),
+              f"index mismatch beyond a near-tie (gap {gap.max().item()})")
+    return {"max_abs_err": err, "index_mismatches": mism}
+
+
+def kernel_phase(torch, T) -> tuple[list, dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lines, at_serving = [], {}
+    for name, b, n, f, k, dup in CASES:
+        base = torch.randn((-(-n // dup), f), generator=gen, device=dev)
+        y32 = base.repeat_interleave(dup, dim=0)[:n].contiguous() if dup > 1 else base
+        xs32 = torch.randn((b, f), generator=gen, device=dev)
+        for type_name, dtype in (("float32", torch.float32),
+                                 ("bfloat16", torch.bfloat16),
+                                 ("int8", torch.int8)):
+            quant = dtype == torch.int8
+            if quant:
+                y, scales = T.quantize_queries(y32)  # per-row int8 + f32 scale
+                xs_in = xs32
+                xk, sx = T.quantize_queries(xs32)
+                yf = y.float()
+            else:
+                y, scales = y32.to(dtype), None
+                xs_in = xk = xs32.to(dtype)
+                yf = y.float()
+            xkf = xk.float()
+
+            def true_score(rows, idx, _yf=yf, _xkf=xkf, _s=scales):
+                s = (_xkf[rows] * _yf[idx.long()]).sum(dim=1)
+                return s * _s[idx.long()] if _s is not None else s
+
+            kb = T._next_pow2(k)
+            n_splits, split_len = T.launch_plan(b, y, kb)
+            pv, pi = T.topk_dot_partial(xk, y, kb=kb, n_splits=n_splits,
+                                        split_len=split_len, scales=scales)
+            torch.cuda.synchronize()
+            rv, ri = T.topk_dot_partial_reference(
+                xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
+                scales=scales,
+            )
+            part = agree(torch, pv, pi, rv, ri, true_score, quant)
+            mv, mi = T.topk_merge(pv, pi, k=k)
+            torch.cuda.synchronize()
+            rmv, rmi = T.topk_merge_reference(pv, pi, k=k)
+            check(torch.equal(mv, rmv) and torch.equal(mi, rmi),
+                  f"{name}/{type_name}: merge differs from its plain version")
+            fin = ~torch.isinf(rmv)
+            merge_err = ((mv[fin] - rmv[fin]).abs().max().item()
+                         if fin.any() else 0.0)
+            v, i = T.topk_dot_batch_cuda(xs_in, y, k=k, scales=scales)
+            torch.cuda.synchronize()
+            vr, ir = T.topk_dot_batch_reference(xs_in, y, k=k, scales=scales)
+            whole_true = (
+                (lambda r, j: true_score(r, j) * sx[r]) if quant else true_score
+            )
+            whole = agree(torch, v, i, vr, ir, whole_true, quant)
+
+            itemsize = y.element_size()
+            in_bytes = b * f * itemsize + n * f * itemsize + (4 * n if quant else 0)
+            part_bytes = 8 * n_splits * b * kb
+            ops = 2.0 * b * n * f
+            ms = time_ms(torch, lambda: T.topk_dot_batch_cuda(
+                xs_in, y, k=k, scales=scales))
+            part_ms = time_ms(torch, lambda: T.topk_dot_partial(
+                xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
+                scales=scales))
+            merge_ms = time_ms(torch, lambda: T.topk_merge(pv, pi, k=k))
+            line = {
+                "phase": "kernel", "case": name, "type": type_name,
+                "B": b, "I": n, "F": f, "k": k, "kb": kb,
+                "splits": n_splits, "split_len": split_len,
+                "partial": part, "whole": whole,
+                "merge": {"max_abs_err": merge_err},
+                "ms": ms, "partial_ms": part_ms, "merge_ms": merge_ms,
+            }
+            line["bound_ms"], line["bound_by"] = bound(
+                in_bytes + 8 * b * k, ops, type_name)
+            line["partial_bound_ms"], line["partial_bound_by"] = bound(
+                in_bytes + part_bytes, ops, type_name)
+            line["merge_bound_ms"], line["merge_bound_by"] = bound(
+                part_bytes + 8 * b * k, 0, type_name)
+            if n >= BIG_ITEMS:
+                reps = 3 if b * n > 1e9 else 5
+                line["plain_ms"] = time_ms(torch, lambda: T.topk_dot_batch_reference(
+                    xs_in, y, k=k, scales=scales), reps=reps, warmup=1)
+                line["library_ms"] = library_ms(torch, xk, y, k, scales)
+            if name == "serving":
+                line["partial_plain_ms"] = time_ms(
+                    torch, lambda: T.topk_dot_partial_reference(
+                        xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
+                        scales=scales), reps=5, warmup=1)
+                line["merge_plain_ms"] = time_ms(
+                    torch, lambda: T.topk_merge_reference(pv, pi, k=k),
+                    reps=20, warmup=2)
+                # one library call computing the merge's function: the
+                # top-k of the union of the partial lists
+                flat = pv.permute(1, 0, 2).reshape(b, -1).contiguous()
+                line["merge_library_ms"] = time_ms(
+                    torch, lambda: torch.topk(flat, k, dim=1))
+                at_serving[type_name] = line
+            emit(line)
+            lines.append(line)
+            del y, pv, pi, rv, ri, yf, xkf
+        del base, y32, xs32
+        torch.cuda.empty_cache()
+    return lines, at_serving
+
+
+def library_ms(torch, xk, y, k, scales):
+    """torch.matmul + torch.topk over the same inputs (timed only; the port
+    never calls it). The int8 form multiplies the int8 values held as bf16
+    (exact) and applies the item scales before the top-k."""
+    if scales is None:
+        return time_ms(torch, lambda: torch.topk(torch.matmul(xk, y.T), k, dim=1),
+                       reps=5 if xk.shape[0] > 1000 else 20)
+    xb, yb = xk.to(torch.bfloat16), y.to(torch.bfloat16)
+    return time_ms(torch, lambda: torch.topk(
+        torch.matmul(xb, yb.T).float() * scales, k, dim=1),
+        reps=5 if xk.shape[0] > 1000 else 20)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the serving path
+# ---------------------------------------------------------------------------
+
+def write_model(np, root: Path) -> tuple[str, dict]:
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+
+    rng = np.random.default_rng(SEED)
+    y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
+    x = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
+    known_idx = rng.integers(0, N_ITEMS, size=(N_USERS, KNOWN_PER_USER))
+    x_ids = [f"u{j}" for j in range(N_USERS)]
+    y_ids = [f"i{j}" for j in range(N_ITEMS)]
+    known = {u: [f"i{int(j)}" for j in row] for u, row in zip(x_ids, known_idx)}
+    art = ModelArtifact("als", content={"knownItems": known},
+                        tensors={"X": x, "Y": y})
+    art.set_extension("features", str(FEATURES))
+    art.set_extension("implicit", "true")
+    art.set_extension("XIDs", x_ids)
+    art.set_extension("YIDs", y_ids)
+    path = root / "model"
+    art.write(path)
+    return str(path), {"x": x, "y": y, "known_idx": known_idx}
+
+
+def exact_top(torch, np, model_data, users) -> list:
+    """Exact float64 top-HOW_MANY item rows per user, known items excluded
+    (torch.matmul in float64 on the card, independent of the kernels)."""
+    y64 = torch.from_numpy(model_data["y"]).cuda().double()
+    out = []
+    for lo in range(0, len(users), 256):
+        sel = users[lo:lo + 256]
+        x64 = torch.from_numpy(model_data["x"][sel]).cuda().double()
+        s = x64 @ y64.T
+        known = torch.from_numpy(model_data["known_idx"][sel]).cuda()
+        s.scatter_(1, known, float("-inf"))
+        out.extend(torch.topk(s, HOW_MANY, dim=1).indices.cpu().numpy())
+    del y64
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
+    from oryx_tpu_torch.apps.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+    t0 = time.monotonic()
+    mgr = ALSServingModelManager(
+        load_config(overlay={"oryx.serving.api.score-mode": mode}))
+    try:
+        mgr.consume_key_message("MODEL-REF", path)
+        model = mgr.get_model()
+        load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        model.top_n(model.get_user_vector("u0"), HOW_MANY)  # builds the view
+        torch.cuda.synchronize()
+        view_s = time.monotonic() - t0
+        y_dev = model._device_view[0]
+        check(y_dev.device.type == "cuda", "device view is not on the card")
+        check(y_dev.shape[0] == N_ITEMS,
+              f"device view holds {y_dev.shape[0]} rows for {N_ITEMS} items")
+        check(str(y_dev.dtype) == ("torch.int8" if mode == "quantized"
+                                   else "torch.bfloat16"),
+              f"{mode} view has type {y_dev.dtype}")
+
+        batcher = TopKBatcher.shared()
+        vecs = [model.get_user_vector(f"u{u}") for u in users]
+        excl = [model.state.get_known_items(f"u{u}") for u in users]
+        done = [0.0] * len(users)
+        sent = [0.0] * len(users)
+        all_done = threading.Event()
+        remaining = [len(users)]
+        lock = threading.Lock()
+
+        def finished(j):
+            def cb(_f):
+                done[j] = time.perf_counter()
+                with lock:
+                    remaining[0] -= 1
+                    if remaining[0] == 0:
+                        all_done.set()
+            return cb
+
+        d0 = batcher.dispatches
+        T.reset_launches()  # the main path's window opens
+        futs = []
+        for j in range(len(users)):
+            sent[j] = time.perf_counter()
+            fut = model.top_n_async(vecs[j], HOW_MANY, exclude=excl[j])
+            fut.add_done_callback(finished(j))
+            futs.append(fut)
+        submit_s = time.perf_counter() - sent[0]
+        check(all_done.wait(300), "requests did not complete")
+        results = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        launches = dict(T.LAUNCHES)  # ... and closes
+        by_type = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+        dispatches = batcher.dispatches - d0
+        check(dispatches < len(users),
+              f"no coalescing: {dispatches} dispatches for {len(users)}")
+        check(launches["topk_dot_partial"] == dispatches
+              and launches["topk_merge"] == dispatches,
+              f"launches {launches} != dispatches {dispatches}")
+        wall = max(done) - min(sent)
+        lat = sorted((d - s) * 1e3 for d, s in zip(done, sent))
+
+        hits = 0
+        for res, want, ex in zip(results, exact_rows, excl):
+            ids = [i for i, _ in res]
+            check(len(ids) == HOW_MANY, "short answer")
+            check(not set(ids) & ex, "a known item was served")
+            hits += len(set(ids) & {f"i{int(r)}" for r in want})
+        recall = hits / (HOW_MANY * len(results))
+        check(recall >= MIN_RECALL[mode],
+              f"{mode} recall@10 {recall} < {MIN_RECALL[mode]}")
+
+        # delta resync: 99 moved items and one new best item for a probe
+        rng = np.random.default_rng(SEED + 1)
+        probe = vecs[0]
+        msgs = []
+        for j in rng.choice(N_ITEMS, size=N_UPDATES - 1, replace=False):
+            vec = rng.standard_normal(FEATURES)
+            msgs.append(json.dumps(["Y", f"i{int(j)}", [float(v) for v in vec]]))
+        star = 10.0 * probe
+        msgs.append(json.dumps(["Y", "i-new", [float(v) for v in star]]))
+        version0 = model.served_version()
+        T.reset_launches()
+        d0 = batcher.dispatches
+        t0 = time.monotonic()
+        for m in msgs:
+            mgr.consume_key_message("UP", m)
+        target = model.state.y.get_version()
+        served = None
+        while time.monotonic() - t0 < 60:
+            served = model.top_n(probe, HOW_MANY, exclude=excl[0])
+            if model.served_version() == target and served[0][0] == "i-new":
+                break
+            time.sleep(0.01)
+        sync_s = time.monotonic() - t0
+        check(served[0][0] == "i-new", f"new item not served: {served[:3]}")
+        check(model.last_resync["kind"] == "delta",
+              f"resync was {model.last_resync}")
+        check(model._device_view[0].shape[0] == N_ITEMS + 1,
+              "the delta did not grow the device view by the new item")
+        delta_launches = dict(T.LAUNCHES)
+        delta_dispatches = batcher.dispatches - d0
+        check(delta_launches["topk_dot_partial"] == delta_dispatches,
+              "delta-phase launches != dispatches")
+        return {
+            "phase": "serving", "mode": mode, "items": N_ITEMS,
+            "users": N_USERS, "features": FEATURES,
+            "load_s": load_s, "view_build_s": view_s,
+            "requests": len(users), "dispatches": dispatches,
+            "mean_batch": len(users) / dispatches, "launches": launches,
+            "partial_launches_by_type": by_type,
+            "recall_at_10": recall, "qps": len(users) / wall,
+            "wall_s": wall, "submit_s": submit_s,
+            "first_done_ms": (min(done) - sent[0]) * 1e3,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "delta": {
+                "updates": N_UPDATES, "from_version": version0,
+                "to_version": model.served_version(),
+                "resync": model.last_resync, "served_after_s": sync_s,
+                "dispatches": delta_dispatches, "launches": delta_launches,
+            },
+        }
+    finally:
+        mgr.close()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
+
+    from oryx_tpu_torch.ops import _build
+    from oryx_tpu_torch.ops import topk as T
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+    t_start = time.monotonic()
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    t0 = time.monotonic()
+    build = _build.build_all()
+    emit({"phase": "environment", "device": kind, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "build_s": build, "build_wall_s": time.monotonic() - t0})
+
+    t0 = time.monotonic()
+    lines, at_serving = kernel_phase(torch, T)
+    emit({"phase": "kernels-done", "checks": len(lines),
+          "seconds": time.monotonic() - t0})
+
+    t0 = time.monotonic()
+    serving = {}
+    with tempfile.TemporaryDirectory(prefix="oryx-smoke-") as tmp:
+        path, model_data = write_model(np, Path(tmp))
+        emit({"phase": "model-written", "seconds": time.monotonic() - t0})
+        users = np.random.default_rng(SEED + 2).choice(
+            N_USERS, size=N_REQUESTS, replace=False)
+        exact_rows = exact_top(torch, np, model_data, users)
+        for mode in ("exact", "quantized"):
+            serving[mode] = serve_mode(torch, np, T, mode, path, model_data,
+                                       users, exact_rows)
+            emit(serving[mode])
+    TopKBatcher.shared().close()
+    emit({"phase": "serving-done", "seconds": time.monotonic() - t0})
+
+    launches = {
+        name: serving["exact"]["launches"][name]
+        + serving["quantized"]["launches"][name]
+        for name in T.LAUNCHES
+    }
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+    bf, i8 = at_serving["bfloat16"], at_serving["int8"]
+    kernels = [
+        {
+            "name": "topk_dot_partial", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": launches["topk_dot_partial"],
+            "max_abs_err": max(l["partial"]["max_abs_err"] for l in lines),
+            "ms": bf["partial_ms"], "plain_ms": bf["partial_plain_ms"],
+            "bound_ms": bf["partial_bound_ms"],
+            "bound_by": bf["partial_bound_by"],
+            "library_ms": bf["library_ms"],
+            # per instantiation; score-mode exact serves the bf16 view,
+            # quantized the int8 one, and no serving mode the f32 one
+            "variants": [
+                {"type": t, "launches": n_launch,
+                 "ms": at_serving[t]["partial_ms"],
+                 "plain_ms": at_serving[t]["partial_plain_ms"],
+                 "bound_ms": at_serving[t]["partial_bound_ms"],
+                 "library_ms": at_serving[t]["library_ms"]}
+                for t, n_launch in (
+                    (t, serving["exact"]["partial_launches_by_type"][t]
+                     + serving["quantized"]["partial_launches_by_type"][t])
+                    for t in ("bfloat16", "int8", "float32")
+                )
+            ],
+            "shape": {"B": bf["B"], "I": bf["I"], "F": bf["F"], "k": bf["k"]},
+            "checked": True,
+        },
+        {
+            "name": "topk_merge", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": MERGE_REPLACES,
+            "launches": launches["topk_merge"],
+            "max_abs_err": max(l["merge"]["max_abs_err"] for l in lines),
+            "ms": bf["merge_ms"], "plain_ms": bf["merge_plain_ms"],
+            "bound_ms": bf["merge_bound_ms"], "bound_by": bf["merge_bound_by"],
+            "library_ms": bf["merge_library_ms"],
+            "shape": {"S": bf["splits"], "B": bf["B"], "kb": bf["kb"],
+                      "k": bf["k"]},
+            "int8_ms": i8["merge_ms"],
+            "checked": True,
+        },
+    ]
+    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
