@@ -19,7 +19,11 @@ Phases, each printing JSON lines:
    launch counts are zeroed just before and read just after. Recall@10 is
    held against an exact float64 ranking; then 100 UP messages, one of which
    plants a new best item for a probed user, go through the delta resync
-   (scatter_rows on the card) and the new item must be served.
+   (scatter_rows on the card) and the new item must be served. The served
+   item views must be pitched (ops/transfer.py). After the timed burst of
+   score-mode exact, one more burst of the same requests, untimed, runs
+   under torch.profiler; its device time by kernel and the share of the
+   burst's wall time the card was busy go into the serving line.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -58,7 +62,10 @@ CASES = [
     ("large-batch", 4096, 1_000_000, 50, 32, 1),
     # a full queue's group, as the batcher now dispatches it: unpadded
     ("queued-batch", 2047, 1_000_000, 50, 32, 1),
+    ("batch-64", 64, 1_000_000, 50, 32, 1),
     ("wide", 64, 1_000_000, 250, 128, 1),
+    # rows of 10 chunks (bf16), more than the ring has stages
+    ("wide-600", 37, 100_000, 600, 128, 1),
     ("single-row", 1, 1_000_000, 50, 10, 1),
     ("ragged", 13, 777, 33, 5, 1),
     ("fewer-items-than-k", 4, 6, 16, 10, 1),
@@ -143,6 +150,8 @@ def agree(torch, v, i, v_ref, i_ref, true_score, exact: bool) -> dict:
 
 
 def kernel_phase(torch, T) -> tuple[list, dict]:
+    from oryx_tpu_torch.ops.transfer import to_pitched
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     lines, at_serving = [], {}
@@ -154,13 +163,15 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
                                  ("bfloat16", torch.bfloat16),
                                  ("int8", torch.int8)):
             quant = dtype == torch.int8
+            # item views pitched as ops/transfer.py lays them out on the card
             if quant:
                 y, scales = T.quantize_queries(y32)  # per-row int8 + f32 scale
+                y = to_pitched(y)
                 xs_in = xs32
                 xk, sx = T.quantize_queries(xs32)
                 yf = y.float()
             else:
-                y, scales = y32.to(dtype), None
+                y, scales = to_pitched(y32.to(dtype)), None
                 xs_in = xk = xs32.to(dtype)
                 yf = y.float()
             xkf = xk.float()
@@ -301,9 +312,55 @@ def exact_top(torch, np, model_data, users) -> list:
     return out
 
 
+def device_profile(prof, wall_s: float) -> dict:
+    """Device time by kernel from a torch.profiler trace of one burst, and
+    its share of the burst's wall time."""
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            by_name[ev.key] = (by_name.get(ev.key, 0.0)
+                               + ev.self_device_time_total / 1e3)
+    device_ms = sum(by_name.values())
+    topk_ms = sum(v for k, v in by_name.items() if "topk" in k)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return {"device_ms": device_ms, "topk_kernels_ms": topk_ms,
+            "device_busy_share": device_ms / (wall_s * 1e3),
+            "topk_share": topk_ms / (wall_s * 1e3), "by_kernel_ms": top}
+
+
+def burst(model, vecs, excl):
+    """Send every request at once through top_n_async and wait for all:
+    (results, send times, completion times, seconds to submit)."""
+    done = [0.0] * len(vecs)
+    sent = [0.0] * len(vecs)
+    all_done = threading.Event()
+    remaining = [len(vecs)]
+    lock = threading.Lock()
+
+    def finished(j):
+        def cb(_f):
+            done[j] = time.perf_counter()
+            with lock:
+                remaining[0] -= 1
+                if remaining[0] == 0:
+                    all_done.set()
+        return cb
+
+    futs = []
+    for j in range(len(vecs)):
+        sent[j] = time.perf_counter()
+        fut = model.top_n_async(vecs[j], HOW_MANY, exclude=excl[j])
+        fut.add_done_callback(finished(j))
+        futs.append(fut)
+    submit_s = time.perf_counter() - sent[0]
+    check(all_done.wait(300), "requests did not complete")
+    return [f.result() for f in futs], sent, done, submit_s
+
+
 def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
     from oryx_tpu_torch.apps.als.serving import ALSServingModelManager
     from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.ops.transfer import is_pitched
     from oryx_tpu_torch.serving.batcher import TopKBatcher
 
     t0 = time.monotonic()
@@ -324,36 +381,16 @@ def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         check(str(y_dev.dtype) == ("torch.int8" if mode == "quantized"
                                    else "torch.bfloat16"),
               f"{mode} view has type {y_dev.dtype}")
+        rows_dev = y_dev.q if mode == "quantized" else y_dev
+        check(is_pitched(rows_dev),
+              f"{mode} view is not pitched: strides {rows_dev.stride()}")
 
         batcher = TopKBatcher.shared()
         vecs = [model.get_user_vector(f"u{u}") for u in users]
         excl = [model.state.get_known_items(f"u{u}") for u in users]
-        done = [0.0] * len(users)
-        sent = [0.0] * len(users)
-        all_done = threading.Event()
-        remaining = [len(users)]
-        lock = threading.Lock()
-
-        def finished(j):
-            def cb(_f):
-                done[j] = time.perf_counter()
-                with lock:
-                    remaining[0] -= 1
-                    if remaining[0] == 0:
-                        all_done.set()
-            return cb
-
         d0 = batcher.dispatches
         T.reset_launches()  # the main path's window opens
-        futs = []
-        for j in range(len(users)):
-            sent[j] = time.perf_counter()
-            fut = model.top_n_async(vecs[j], HOW_MANY, exclude=excl[j])
-            fut.add_done_callback(finished(j))
-            futs.append(fut)
-        submit_s = time.perf_counter() - sent[0]
-        check(all_done.wait(300), "requests did not complete")
-        results = [f.result() for f in futs]
+        results, sent, done, submit_s = burst(model, vecs, excl)
         torch.cuda.synchronize()
         launches = dict(T.LAUNCHES)  # ... and closes
         by_type = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
@@ -364,6 +401,16 @@ def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
               and launches["topk_merge"] == dispatches,
               f"launches {launches} != dispatches {dispatches}")
         wall = max(done) - min(sent)
+        traced = None
+        if mode == "exact":
+            # the same burst again, untimed, under the profiler (which slows
+            # the host): how busy the card is while the host serves
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                _r, sent_p, done_p, _s = burst(model, vecs, excl)
+                torch.cuda.synchronize()
+            traced = device_profile(prof, max(done_p) - min(sent_p))
         lat = sorted((d - s) * 1e3 for d, s in zip(done, sent))
 
         hits = 0
@@ -420,6 +467,7 @@ def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
             "first_done_ms": (min(done) - sent[0]) * 1e3,
             "p50_ms": lat[len(lat) // 2],
             "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "profile": traced,
             "delta": {
                 "updates": N_UPDATES, "from_version": version0,
                 "to_version": model.served_version(),

@@ -30,6 +30,7 @@ from oryx_tpu_torch.apps.als.state import ALSState, apply_update_message
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.device import resolve_device
 from oryx_tpu_torch.ops.als import compute_updated_xu
+from oryx_tpu_torch.ops.topk import check_features
 from oryx_tpu_torch.ops.transfer import (
     QuantizedMatrix,
     quantize_rows_int8,
@@ -39,6 +40,7 @@ from oryx_tpu_torch.ops.transfer import (
     scatter_rows,
     scatter_transfer_bytes,
     staged_device_put,
+    to_pitched,
 )
 from oryx_tpu_torch.serving.app import chain_future, configure_post_pool, post_pool
 from oryx_tpu_torch.serving.batcher import TopKBatcher
@@ -134,9 +136,10 @@ def _extend_ids(ids: list, delta) -> list | None:
 
 
 def _normalize_rows(a: torch.Tensor) -> torch.Tensor:
+    """The cosine view of an item view: unit rows, pitched like ``a``."""
     af = a.float()
     n = torch.clamp(torch.linalg.norm(af, dim=1, keepdim=True), min=1e-12)
-    return (af / n).to(a.dtype)
+    return to_pitched((af / n).to(a.dtype))
 
 
 class ALSServingModel(ServingModel):
@@ -160,6 +163,13 @@ class ALSServingModel(ServingModel):
             # device selection before score-mode existed
             score_mode = "approx"
         self.score_mode = score_mode
+        if self.device.type == "cuda":
+            # the kernel's widest rows: a model too wide for it fails here,
+            # once, and not on every request
+            check_features(
+                state.features,
+                torch.int8 if score_mode == "quantized" else torch.bfloat16,
+            )
         self.sync = sync or SyncConfig()
         # (device matrix [n,K], ids [n], version, host f32 mirror
         # [capacity,K]) swapped as ONE tuple: readers always see a matched

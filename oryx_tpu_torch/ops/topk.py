@@ -13,6 +13,11 @@ scores int8 x int8 -> int32, times the item scale before selection; the
 per-query scale multiplies the returned values afterwards (a positive
 per-row factor never changes that row's order).
 
+The partial kernel reads the item matrix through a TMA tensor map, so on
+the card ``y`` must be a pitched view (ops/transfer.py): rows 16-byte
+aligned at a stride that is a multiple of 16 bytes. The wrapper raises on
+any other layout; it never copies Y per call.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 only then: on a CUDA tensor it launches its kernel or raises. Each kernel
 counts its launches in ``LAUNCHES``.
@@ -25,13 +30,15 @@ import ctypes
 import torch
 
 from oryx_tpu_torch.ops import _build
+from oryx_tpu_torch.ops.transfer import is_pitched
 
 MAX_K = 128  # the running top-k is at most one 128-slot list per row
 
-# must match csrc/topk_dot.cu
-ROWS_PER_BLOCK = 32
-TILE_ITEMS = 128
-MAX_SHARED_BYTES = 232448  # dynamic shared memory a block may use on Hopper
+# block geometry of the partial kernel; must match csrc/topk_dot.cu
+ROWS_PER_BLOCK = 64   # bf16 / int8: one wgmma warpgroup (M = 64)
+TILE_ITEMS = 64       # bf16 / int8: items per TMA tile (wgmma N = 64)
+F32_ROWS_PER_BLOCK = 32
+F32_TILE_ITEMS = 128
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched
@@ -65,7 +72,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = (
                 [p, p] + ([p] if dtype == torch.int8 else []) + [p, p]
-                + [i] * 6 + [p]
+                + [i] * 7 + [p]
             )
             fn.restype = i
         lib.oryx_topk_merge.argtypes = [p, p, p, p, i, i, i, i, p]
@@ -74,6 +81,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                      "oryx_topk_partial_blocks_per_sm"):
             getattr(lib, name).argtypes = [i, i, i]
             getattr(lib, name).restype = i
+        lib.oryx_topk_max_features.argtypes = [i, i]
+        lib.oryx_topk_max_features.restype = i
         lib._oryx_bound = True
     return lib
 
@@ -223,28 +232,65 @@ def merge_top(av, ai, bv, bi):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def plan_splits(b: int, n_items: int, sm_count: int,
-                blocks_per_sm: int = 4) -> tuple[int, int]:
+def block_geometry(dtype: torch.dtype) -> tuple[int, int]:
+    """(query rows per block, items per tile) of the partial kernel for an
+    item matrix of ``dtype``."""
+    if dtype == torch.float32:
+        return F32_ROWS_PER_BLOCK, F32_TILE_ITEMS
+    return ROWS_PER_BLOCK, TILE_ITEMS
+
+
+def plan_splits(b: int, n_items: int, sm_count: int, blocks_per_sm: int = 4,
+                rows_per_block: int = ROWS_PER_BLOCK,
+                tile_items: int = TILE_ITEMS) -> tuple[int, int]:
     """(n_splits, split_len) for the partial kernel: as many item splits as
     let (row blocks x splits) run in one wave of ``blocks_per_sm`` resident
     blocks on every SM (at least one split), each split a whole number of
-    128-item tiles and at least four of them."""
-    row_blocks = -(-b // ROWS_PER_BLOCK)
-    tiles = -(-n_items // TILE_ITEMS)
+    ``tile_items``-item tiles and at least four of them."""
+    row_blocks = -(-b // rows_per_block)
+    tiles = -(-n_items // tile_items)
     splits = max(1, blocks_per_sm * sm_count // row_blocks)
     splits = min(splits, max(1, tiles // 4))
-    split_len = -(-tiles // splits) * TILE_ITEMS
+    split_len = -(-tiles // splits) * tile_items
     return -(-n_items // split_len), split_len
 
 
 _BLOCKS_PER_SM: dict[tuple, int] = {}
+_MAX_FEATURES: dict[tuple, int] = {}
+
+
+def max_features(kb: int, dtype: torch.dtype,
+                 lib: ctypes.CDLL | None = None) -> int:
+    """The widest item rows (features) the partial kernel takes for a
+    top-kb of an item matrix of ``dtype``: a block's shared memory holds
+    the query block, whose size grows with the width (asked of the kernel
+    library once per kb and type)."""
+    lib = _lib() if lib is None else bind(lib)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    key = (id(lib), kb, itemsize)
+    if key not in _MAX_FEATURES:
+        _MAX_FEATURES[key] = lib.oryx_topk_max_features(kb, itemsize)
+    return _MAX_FEATURES[key]
+
+
+def check_features(features: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless the kernel serves ``features``-wide item
+    rows of ``dtype`` at every k up to MAX_K (bf16 up to 1,024 features,
+    int8 up to 2,048). A model checks it when it is built on the card, so a
+    too-wide one fails once, at load, instead of on every request."""
+    widest = max_features(MAX_K, dtype)
+    if features > widest:
+        raise ValueError(
+            f"{features} features: the top-k kernel takes at most {widest} "
+            f"for a {dtype} item view"
+        )
 
 
 def launch_plan(b: int, y: torch.Tensor, kb: int) -> tuple[int, int]:
     """``plan_splits`` for ``b`` query rows against the item matrix ``y`` on
-    its card, with as many resident blocks per SM as the partial kernel's
-    shared memory and registers allow there (asked of the CUDA runtime once
-    per shape)."""
+    its card, with the block geometry of ``y``'s type and as many resident
+    blocks per SM as the partial kernel's shared memory and registers allow
+    there (asked of the CUDA runtime once per shape)."""
     key = (y.device.index, y.shape[1], kb, y.element_size())
     per_sm = _BLOCKS_PER_SM.get(key)
     if per_sm is None:
@@ -256,7 +302,8 @@ def launch_plan(b: int, y: torch.Tensor, kb: int) -> tuple[int, int]:
             raise ValueError(f"{y.shape[1]} features need more shared memory than a block has")
         _BLOCKS_PER_SM[key] = per_sm
     sm_count = torch.cuda.get_device_properties(y.device).multi_processor_count
-    return plan_splits(b, y.shape[0], sm_count, per_sm)
+    rows, tile = block_geometry(y.dtype)
+    return plan_splits(b, y.shape[0], sm_count, per_sm, rows, tile)
 
 
 def _check_tensors(*tensors) -> None:
@@ -268,12 +315,29 @@ def _check_tensors(*tensors) -> None:
             raise ValueError("the kernel takes contiguous tensors")
 
 
+def check_item_view(y: torch.Tensor) -> None:
+    """Raise ValueError unless ``y`` is a pitched item view: dense rows
+    (stride 1 along features) whose row stride is a multiple of 16 bytes,
+    starting at a 16-byte aligned address -- what the kernel's TMA tensor
+    map needs. The 2-D views built by ops/transfer.py
+    (``staged_device_put``, ``quantized_device_put``, ``scatter_rows``,
+    ``to_pitched``) are; the kernel never copies Y per call."""
+    if not is_pitched(y):
+        raise ValueError(
+            "the kernel takes a pitched item view (row stride a multiple of "
+            f"16 bytes, 16-byte aligned); got strides {tuple(y.stride())} "
+            f"of {y.element_size()}-byte elements at address "
+            f"{y.data_ptr():#x}: build it with ops.transfer.to_pitched"
+        )
+
+
 def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
                      scales=None, lib: ctypes.CDLL | None = None):
     """Launch ``topk_dot_partial``: [S, B, kb] sorted partial top-kb lists
-    (f32 values, int32 global indices, (-inf, -1) in unfilled slots).
-    ``lib`` launches a variant's build instead of the checkout's (the
-    kernel probe's use). On the CPU: ``topk_dot_partial_reference``."""
+    (f32 values, int32 global indices, (-inf, -1) in unfilled slots). ``y``
+    is a pitched item view (``check_item_view``). ``lib`` launches a
+    variant's build instead of the checkout's (the kernel probe's use). On
+    the CPU: ``topk_dot_partial_reference``."""
     if y.device.type == "cpu":
         return topk_dot_partial_reference(
             xs, y, kb=kb, n_splits=n_splits, split_len=split_len,
@@ -290,26 +354,27 @@ def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
     quantized = y.dtype == torch.int8
     if quantized != (scales is not None):
         raise ValueError("scales go with an int8 item matrix, and only then")
-    tensors = [xs, y] + ([scales] if quantized else [])
-    _check_tensors(*tensors)
-    row_bytes = n_feat * y.element_size()
-    align = 4 if row_bytes % 4 == 0 else 2 if row_bytes % 2 == 0 else 1
-    if y.data_ptr() % align:
-        raise ValueError(f"the kernel reads rows of y in {align}-byte words: "
-                         f"y must be {align}-byte aligned")
+    _check_tensors(xs, *([scales] if quantized else []))
+    if y.device != xs.device:
+        raise ValueError(f"tensors on {y.device} and {xs.device}")
+    check_item_view(y)
     lib = _lib() if lib is None else bind(lib)
-    if lib.oryx_topk_partial_smem_bytes(n_feat, kb, y.element_size()) > MAX_SHARED_BYTES:
-        raise ValueError(f"{n_feat} features need more shared memory than a block has")
+    if n_feat > max_features(kb, y.dtype, lib):
+        raise ValueError(
+            f"{n_feat} features: the kernel takes at most "
+            f"{max_features(kb, y.dtype, lib)} at kb={kb} for {y.dtype}"
+        )
     if quantized and scales.dtype != torch.float32:
         raise ValueError("item scales must be float32")
     part_v = torch.empty((n_splits, b, kb), dtype=torch.float32,
                          device=y.device)
     part_i = torch.empty((n_splits, b, kb), dtype=torch.int32,
                          device=y.device)
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [xs.data_ptr(), y.data_ptr()] + (
+        [scales.data_ptr()] if quantized else [])
     fn = getattr(lib, _PARTIAL_ENTRY[y.dtype])
     rc = fn(*ptrs, part_v.data_ptr(), part_i.data_ptr(), b, n_items, n_feat,
-            kb, n_splits, split_len,
+            y.stride(0), kb, n_splits, split_len,
             torch.cuda.current_stream(y.device).cuda_stream)
     _check(rc, "topk_dot_partial launch")
     LAUNCHES["topk_dot_partial"] += 1

@@ -9,6 +9,14 @@ of the parts of oryx_tpu/ops/transfer.py the single-card view needs).
   delta rows cross the host link (the TensorFlow pattern of device-resident
   state updated by sparse scatters, PAPERS: TensorFlow, 2016).
 
+Item views are pitched: the rows of an ``[n, F]`` view sit at a pitch of
+F x itemsize rounded up to 16 bytes (``pitched_empty``), as the narrow view
+``buf[:, :F]`` of an ``[n, pitch]`` buffer whose padding columns hold
+zeros. The top-k kernel loads item tiles with the Tensor Memory Accelerator,
+whose row strides must be multiples of 16 bytes; a bf16 row at F=50 is 100
+bytes and an int8 row 50. The logical shape stays ``[n, F]``, so plain
+PyTorch code sees the same values as before.
+
 Chunked and row-sharded views wait for a later slice; a view larger than
 the card's memory raises instead.
 """
@@ -23,6 +31,45 @@ import torch
 from oryx_tpu_torch.device import resolve_device
 
 DEFAULT_CHUNK_BYTES = 64 * 1024 * 1024
+PITCH_ALIGN_BYTES = 16  # TMA: global row strides and base address
+
+
+def row_pitch(features: int, dtype: torch.dtype) -> int:
+    """Row pitch in elements of a pitched item view: ``features`` x itemsize
+    rounded up to PITCH_ALIGN_BYTES (F=50: 56 bf16 or 64 int8; F=250: 256
+    in both)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    row = features * itemsize
+    return -(-row // PITCH_ALIGN_BYTES) * PITCH_ALIGN_BYTES // itemsize
+
+
+def pitched_empty(n: int, features: int, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    """An ``[n, features]`` view of a new ``[n, row_pitch]`` buffer on
+    ``device`` whose padding columns hold zeros (the rest is left for the
+    caller to fill)."""
+    buf = torch.empty((n, row_pitch(features, dtype)), dtype=dtype,
+                      device=device)
+    buf[:, features:].zero_()
+    return buf[:, :features]
+
+
+def is_pitched(t: torch.Tensor) -> bool:
+    """True for a 2-D view with dense rows, a row stride that is a multiple
+    of 16 bytes and a 16-byte aligned start: what the top-k kernel takes."""
+    return (t.ndim == 2 and t.stride(1) == 1
+            and (t.stride(0) * t.element_size()) % PITCH_ALIGN_BYTES == 0
+            and t.data_ptr() % PITCH_ALIGN_BYTES == 0)
+
+
+def to_pitched(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is pitched, else a pitched copy of the 2-D
+    tensor ``t`` on its device."""
+    if is_pitched(t):
+        return t
+    out = pitched_empty(t.shape[0], t.shape[1], t.dtype, t.device)
+    out.copy_(t)
+    return out
 
 
 def _check_fits(n_bytes: int, device: torch.device) -> None:
@@ -43,13 +90,20 @@ def staged_device_put(
 ) -> torch.Tensor:
     """Upload ``a`` to ``device`` (default: the card) as ``dtype`` in row
     chunks of at most ``chunk_bytes`` of host data, written into one
-    preallocated device tensor. The copy is complete when this returns."""
+    preallocated device tensor: a pitched view (``pitched_empty``) for a
+    2-D matrix, a dense tensor otherwise. The copy is complete when this
+    returns."""
     device = resolve_device(device)
     src = torch.from_numpy(np.ascontiguousarray(a))
     out_dtype = src.dtype if dtype is None else dtype
     itemsize = torch.empty((), dtype=out_dtype).element_size()
-    _check_fits(src.numel() * itemsize, device)
-    out = torch.empty(src.shape, dtype=out_dtype, device=device)
+    if src.ndim == 2:
+        n, f = src.shape
+        _check_fits(n * row_pitch(f, out_dtype) * itemsize, device)
+        out = pitched_empty(n, f, out_dtype, device)
+    else:
+        _check_fits(src.numel() * itemsize, device)
+        out = torch.empty(src.shape, dtype=out_dtype, device=device)
     if src.ndim == 0 or src.shape[0] == 0:
         out.copy_(src)
         return out
@@ -130,7 +184,7 @@ def _int8_unit_scales(q: torch.Tensor, rows_per: int = 1 << 20) -> torch.Tensor:
 
 def quantized_device_put(a: np.ndarray, device=None) -> QuantizedMatrix:
     """Quantize a host f32 matrix per row and upload it (staged) as a
-    QuantizedMatrix device view."""
+    QuantizedMatrix device view: pitched int8 rows, ``[n]`` f32 scales."""
     q, scale = quantize_rows_int8(a)
     return QuantizedMatrix(
         staged_device_put(q, device=device),
@@ -150,6 +204,7 @@ def scatter_rows(buf, idx: np.ndarray, rows: np.ndarray,
     zero past ``buf``'s end: the store's appended rows, which the caller
     writes through ``idx``. The copy is a new buffer either way, so growth
     costs nothing more and the view never holds a row that is not live.
+    The copy of a 2-D item view is pitched (``pitched_empty``).
 
     A QuantizedMatrix re-quantizes ONLY the dirty rows (each row's scale is
     independent), so an update storm never requantizes the whole matrix."""
@@ -169,7 +224,13 @@ def scatter_rows(buf, idx: np.ndarray, rows: np.ndarray,
     device = buf.device
     idx_t = torch.from_numpy(idx).to(device)
     rows_t = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
-    if n_rows == n_old:
+    if buf.ndim == 2:
+        # an item view: the copy is pitched (clone() of a narrow view would
+        # come back dense and lose the pitch)
+        out = pitched_empty(n_rows, buf.shape[1], buf.dtype, device)
+        out[:n_old] = buf
+        out[n_old:] = 0
+    elif n_rows == n_old:
         out = buf.clone()
     else:
         out = buf.new_zeros((n_rows, *buf.shape[1:]))

@@ -292,3 +292,68 @@ def test_serving_on_the_cpu_launches_no_kernel(tmp_path):
         assert pm.get_model()._device_view[0].device == torch.device("cpu")
     finally:
         pm.close()
+
+
+def _assert_pitched_view(view, want):
+    # pitched item view (ops/transfer.py): shape [n, F], a row stride of a
+    # 16-byte multiple, zero padding columns, the dense path's values
+    n, f = want.shape
+    assert tuple(view.shape) == (n, f)
+    assert (view.stride(0) * view.element_size()) % 16 == 0
+    assert view.stride(1) == 1 and view.data_ptr() % 16 == 0
+    whole = view.as_strided((n, view.stride(0)), (view.stride(0), 1))
+    assert torch.equal(whole[:, f:], torch.zeros_like(whole[:, f:]))
+    assert torch.equal(view, want)
+
+
+@pytest.mark.parametrize("mode", ["exact", "quantized"])
+def test_served_views_are_pitched(tmp_path, mode):
+    # the device view and the cosine view after a full build, then after a
+    # delta that moves rows and appends one, match the JAX package's answers
+    # and are pitched with the values the dense path would hold
+    from oryx_tpu_torch.ops.transfer import quantize_rows_int8
+
+    path, _ = _artifact(tmp_path, seed=6)
+    jm, pm = _managers(path, mode)
+    try:
+        users = ["u1", "u5"]
+        model = pm.get_model()
+        for step in range(2):
+            _compare(jm, pm, users)
+            _compare(jm, pm, users, how_many=4, cosine=True)
+            y, ids, _v, host = model._device_view
+            mat = host[:len(ids)]
+            unit = model._unit_view[0]
+            if mode == "quantized":
+                _assert_pitched_view(y.q, torch.from_numpy(quantize_rows_int8(mat)[0]))
+                assert unit.q is y.q
+            else:
+                _assert_pitched_view(y, torch.from_numpy(mat).to(torch.bfloat16))
+                # a full build normalizes the bf16 rows; a delta writes its
+                # dirty rows normalized from the f32 store
+                yf = y.float()
+                norms = torch.clamp(torch.linalg.norm(yf, dim=1, keepdim=True),
+                                    min=1e-12)
+                want = (yf / norms).to(torch.bfloat16)
+                dirty = [3, 77, N_ITEMS] if step else []
+                m = mat[dirty]
+                want[dirty] = torch.from_numpy(
+                    m / np.maximum(np.linalg.norm(m, axis=1), 1e-12)[:, None]
+                ).to(torch.bfloat16)
+                _assert_pitched_view(unit, want)
+            if step == 0:
+                rng = np.random.default_rng(11)
+                for j in (3, 77):
+                    vec = rng.standard_normal(FEATURES)
+                    msg = json.dumps(["Y", f"i{j}", [float(v) for v in vec]])
+                    jm.consume_key_message("UP", msg)
+                    pm.consume_key_message("UP", msg)
+                msg = json.dumps(["Y", "appended", [0.5] * FEATURES])
+                jm.consume_key_message("UP", msg)
+                pm.consume_key_message("UP", msg)
+                _wait_synced(jm.get_model(), model)
+                assert model.last_resync["kind"] == "delta"
+                assert model._device_view[0].shape[0] == N_ITEMS + 1
+    finally:
+        jm.close()
+        pm.close()

@@ -242,3 +242,23 @@ def test_kernel_probe_still_finds_every_phase(tmp_path):
     other.write_text(src + "\n// another version\n")
     paths.add(_build.library_path("topk_dot", source=other))
     assert len(paths) == len(topk_probe.VARIANTS) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("b", [1, 64, 512, 2047])
+@pytest.mark.parametrize("per_sm", [1, 2, 4])
+def test_split_plan_covers_the_catalog_in_one_wave(dtype, b, per_sm):
+    # the partial kernel's block (64 rows and 64-item tiles for bf16 and
+    # int8, 32 rows and 128-item tiles for f32) and the split plan over it:
+    # whole tiles, at least four a split, covering the catalog once, and no
+    # more blocks than one wave of per_sm resident blocks on 132 SMs
+    rows, tile = T.block_geometry(dtype)
+    if dtype == torch.float32:
+        assert (rows, tile) == (32, 128)
+    else:
+        assert (rows, tile) == (T.ROWS_PER_BLOCK, T.TILE_ITEMS) == (64, 64)
+    n_splits, split_len = T.plan_splits(b, 1_000_000, 132, per_sm, rows, tile)
+    assert split_len % tile == 0 and split_len >= 4 * tile
+    assert (n_splits - 1) * split_len < 1_000_000 <= n_splits * split_len
+    row_blocks = -(-b // rows)
+    assert row_blocks * n_splits <= max(per_sm * 132, row_blocks)

@@ -147,3 +147,60 @@ def test_row_capacity_ladder_matches_jax(headroom):
         assert cap == J.row_capacity(n, headroom)
         assert cap >= n and cap >= prev
         prev = cap
+
+
+def _assert_pitched(view, want):
+    """``view`` is a pitched item view of the values ``want`` (a torch
+    tensor [n, F]): dense rows at a 16-byte multiple stride, zero padding."""
+    n, f = want.shape
+    assert tuple(view.shape) == (n, f)
+    assert P.is_pitched(view)
+    pitch = view.stride(0)
+    assert pitch == P.row_pitch(f, view.dtype)
+    assert (pitch * view.element_size()) % 16 == 0
+    whole = view.as_strided((n, pitch), (pitch, 1))
+    assert torch.equal(whole[:, f:], torch.zeros_like(whole[:, f:]))
+    assert torch.equal(view, want)
+
+
+@pytest.mark.parametrize("f,pitch_bf16,pitch_i8", [
+    (50, 56, 64), (250, 256, 256), (17, 24, 32), (16, 16, 16), (8, 8, 16),
+])
+def test_row_pitch_rounds_rows_to_16_bytes(f, pitch_bf16, pitch_i8):
+    assert P.row_pitch(f, torch.bfloat16) == pitch_bf16
+    assert P.row_pitch(f, torch.int8) == pitch_i8
+    assert P.row_pitch(f, torch.float32) * 4 % 16 == 0
+
+
+@pytest.mark.parametrize("f", [50, 17, 16])
+def test_pitched_views_through_build_delta_and_growth(f):
+    # a full build, a delta scatter, growth by appended rows, and the
+    # quantized and cosine views: each is pitched, zero-padded, and holds
+    # the values the dense path would
+    rng = np.random.default_rng(f)
+    y = _matrix(f, n=90, f=f)
+    bf = P.staged_device_put(y, dtype=torch.bfloat16, device="cpu")
+    _assert_pitched(bf, torch.from_numpy(y).to(torch.bfloat16))
+    qm = P.quantized_device_put(y, device="cpu")
+    q, s = P.quantize_rows_int8(y)
+    _assert_pitched(qm.q, torch.from_numpy(q))
+    assert torch.equal(qm.scale, torch.from_numpy(s))
+    assert qm.unit_scaled().q is qm.q
+
+    idx = np.array([3, 40, 90, 91])  # two rows moved, two appended
+    rows = rng.standard_normal((4, f)).astype(np.float32)
+    whole = np.concatenate([y, np.zeros((2, f), np.float32)])
+    whole[idx] = rows
+    for n_rows, want_rows in ((None, y.copy()), (92, whole)):
+        sel = idx if n_rows else idx[:2]
+        if n_rows is None:
+            want_rows[idx[:2]] = rows[:2]
+        out = P.scatter_rows(bf, sel, rows[:len(sel)], n_rows)
+        _assert_pitched(out, torch.from_numpy(want_rows).to(torch.bfloat16))
+        out_q = P.scatter_rows(qm, sel, rows[:len(sel)], n_rows)
+        _assert_pitched(out_q.q, torch.from_numpy(P.quantize_rows_int8(want_rows)[0]))
+    # the dense source of a pitched copy is left as it was
+    dense = torch.from_numpy(y).to(torch.bfloat16)
+    assert not P.is_pitched(dense) or f * 2 % 16 == 0
+    _assert_pitched(P.to_pitched(dense), dense)
+    assert P.to_pitched(bf) is bf
