@@ -9,9 +9,13 @@ Phases, each printing JSON lines:
    kernel from the sources in this checkout (one nvcc per source, together);
 2. kernels: each hand-written kernel held against its plain PyTorch version
    on the card at the serving shapes and at the edge cases, with its time
-   (CUDA events, median of 20 launches after warm-up), the plain version's,
-   one library call's (torch.matmul + torch.topk, timed only) and the least
-   time the card could take (H100 SXM data sheet peaks);
+   (device time by CUDA events, median of 20 launches after warm-up,
+   queued behind a spinning kernel; and beside it the host-inclusive time
+   of one call on an idle card, ops/timing.py), the plain version's, one
+   library call's (torch.matmul + torch.topk; for the
+   merge, torch.topk of the union of the partial lists; timed only, at 100k
+   items or more) and the least time the card could take (H100 SXM data
+   sheet peaks);
 3. serving (the main path): a synthetic ALS model of 1M items x 50 features
    and 100k users, written as a model artifact and loaded by
    ALSServingModelManager from a MODEL-REF message, answers 2,048 concurrent
@@ -33,7 +37,6 @@ non-zero; without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -70,6 +73,9 @@ CASES = [
     ("ragged", 13, 777, 33, 5, 1),
     ("fewer-items-than-k", 4, 6, 16, 10, 1),
     ("ties", 37, 50_000, 16, 25, 5),
+    # every item row identical: every score ties, and the answer is the
+    # lowest 128 indices
+    ("all-ties", 7, 20_000, 16, 128, 20_000),
 ]
 BIG_ITEMS = 100_000  # time the plain and library forms only at or above
 
@@ -96,20 +102,26 @@ def nvidia_smi_line() -> str:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn over reps launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+NOT_QUEUED: list[str] = []  # device readings that may hold host time
+
+
+def time_ms(torch, fn, what: str, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of fn over reps launches (CUDA events, queued
+    behind a spinning kernel so that the host's time to issue a launch
+    does not count: ops/timing.py device_ms). A reading whose launches
+    were not all issued while the card was busy is named in NOT_QUEUED."""
+    from oryx_tpu_torch.ops.timing import device_ms
+
+    ms, _out, queued = device_ms(torch, fn, reps, warmup)
+    if not queued:
+        NOT_QUEUED.append(what)
+    return ms
+
+
+def queued(line: dict, **readings: str) -> dict:
+    """{key: whether the reading behind line[key] was queued}"""
+    return {key: what not in line["not_queued"]
+            for key, what in readings.items()}
 
 
 def bound(n_bytes: float, n_ops: float, type_name: str) -> tuple[float, str]:
@@ -123,11 +135,19 @@ def bound(n_bytes: float, n_ops: float, type_name: str) -> tuple[float, str]:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def agree(torch, v, i, v_ref, i_ref, true_score, exact: bool) -> dict:
+def agree(torch, v, i, v_ref, i_ref, true_score, type_name: str, f: int,
+          whole: bool) -> dict:
     """Hold kernel output (v, i) against the plain version's. int8: bit
-    equality. Float: values within FLOAT_TOL, and where indices differ the
-    kernel's item must truly score within FLOAT_TOL of the plain version's
-    score at that slot (a near-tie resolved the other way)."""
+    equality. bf16: values within FLOAT_TOL (atol and rtol). f32: values
+    within 2 f32_tolerance(f) (absolute; ops/topk.py), and a whole call's
+    within f32_tolerance(f) of the float64 scores of the items it
+    returned. Float: where indices
+    differ, the kernel's item must truly (float64) score within the same
+    tolerance of the plain version's score at that slot (a near-tie
+    resolved the other way)."""
+    from oryx_tpu_torch.ops.topk import f32_tolerance
+
+    exact = type_name == "int8"
     check(v.shape == v_ref.shape and i.shape == i_ref.shape, "shapes differ")
     pad, pad_ref = torch.isinf(v), torch.isinf(v_ref)
     check(torch.equal(pad, pad_ref), "-inf padding differs")
@@ -139,22 +159,57 @@ def agree(torch, v, i, v_ref, i_ref, true_score, exact: bool) -> dict:
         check(torch.equal(v, v_ref), f"int8 values differ (max {err})")
         check(mism == 0, f"int8 indices differ at {mism} slots")
         return {"max_abs_err": err, "index_mismatches": 0}
-    torch.testing.assert_close(v, v_ref, atol=FLOAT_TOL, rtol=FLOAT_TOL)
+    out = {"max_abs_err": err, "index_mismatches": mism}
+    if type_name == "float32":
+        tol = f32_tolerance(f)
+        atol, rtol = 2 * tol, 0.0
+        out["tol"] = atol
+        if whole and fin.any():
+            rows = torch.arange(v.shape[0], device=v.device)[:, None].expand_as(v)
+            true = true_score(rows[fin], i[fin])
+            out["max_err_vs_f64"] = (v[fin].double() - true).abs().max().item()
+            check(out["max_err_vs_f64"] <= tol,
+                  f"f32 values off their float64 scores by "
+                  f"{out['max_err_vs_f64']} > {tol}")
+    else:
+        atol = rtol = FLOAT_TOL
+    torch.testing.assert_close(v, v_ref, atol=atol, rtol=rtol)
     if mism:
         where = tuple((i != i_ref).nonzero().T)  # ([split,] row, slot)
-        ref = v_ref[where]
+        ref = v_ref[where].double()
         gap = (true_score(where[-2], i[where]) - ref).abs()
-        check(bool((gap <= FLOAT_TOL + FLOAT_TOL * ref.abs()).all()),
+        check(bool((gap <= atol + rtol * ref.abs()).all()),
               f"index mismatch beyond a near-tie (gap {gap.max().item()})")
-    return {"max_abs_err": err, "index_mismatches": mism}
+    return out
+
+
+def tf32_control(torch, T, xk, y, k, true_score, f) -> dict:
+    """The plain whole call's values with TF32 products (the switch the
+    plain version turns off) against their float64 scores: the error that
+    f32_tolerance(f) must reject. Timed nowhere; the port never computes so."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err = 0.0
+        for lo, hi in T._row_chunks(xk.shape[0], y.shape[0]):
+            v, i = torch.topk(xk[lo:hi] @ y.T, min(k, y.shape[0]), dim=1)
+            rows = torch.arange(lo, hi, device=v.device)[:, None].expand_as(v)
+            err = max(err, (v.double() - true_score(rows.reshape(-1),
+                                                    i.reshape(-1)).view_as(v))
+                      .abs().max().item())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    tol = T.f32_tolerance(f)
+    return {"max_err_vs_f64": err, "tol": tol, "rejected": err > tol}
 
 
 def kernel_phase(torch, T) -> tuple[list, dict]:
+    from oryx_tpu_torch.ops.timing import wall_ms
     from oryx_tpu_torch.ops.transfer import to_pitched
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    lines, at_serving = [], {}
+    lines, at_serving, at_single = [], {}, {}
     for name, b, n, f, k, dup in CASES:
         base = torch.randn((-(-n // dup), f), generator=gen, device=dev)
         y32 = base.repeat_interleave(dup, dim=0)[:n].contiguous() if dup > 1 else base
@@ -177,8 +232,13 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
             xkf = xk.float()
 
             def true_score(rows, idx, _yf=yf, _xkf=xkf, _s=scales):
-                s = (_xkf[rows] * _yf[idx.long()]).sum(dim=1)
-                return s * _s[idx.long()] if _s is not None else s
+                """float64 scores of items idx for query rows rows"""
+                out, step = [], 1 << 16
+                for lo in range(0, rows.numel(), step):
+                    r, j = rows[lo:lo + step], idx[lo:lo + step].long()
+                    s = (_xkf[r].double() * _yf[j].double()).sum(dim=1)
+                    out.append(s * _s[j].double() if _s is not None else s)
+                return torch.cat(out) if out else rows.new_empty(0, dtype=torch.float64)
 
             kb = T._next_pow2(k)
             n_splits, split_len = T.launch_plan(b, y, kb)
@@ -189,7 +249,8 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
                 xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
                 scales=scales,
             )
-            part = agree(torch, pv, pi, rv, ri, true_score, quant)
+            part = agree(torch, pv, pi, rv, ri, true_score, type_name, f,
+                         whole=False)
             mv, mi = T.topk_merge(pv, pi, k=k)
             torch.cuda.synchronize()
             rmv, rmi = T.topk_merge_reference(pv, pi, k=k)
@@ -202,20 +263,40 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
             torch.cuda.synchronize()
             vr, ir = T.topk_dot_batch_reference(xs_in, y, k=k, scales=scales)
             whole_true = (
-                (lambda r, j: true_score(r, j) * sx[r]) if quant else true_score
+                (lambda r, j: true_score(r, j) * sx[r].double()) if quant
+                else true_score
             )
-            whole = agree(torch, v, i, vr, ir, whole_true, quant)
+            whole = agree(torch, v, i, vr, ir, whole_true, type_name, f,
+                          whole=True)
+            if type_name == "float32":
+                whole["tf32_control"] = tf32_control(torch, T, xk, y, k,
+                                                     true_score, f)
+            if dup == n:
+                lowest = torch.arange(k, dtype=torch.int32, device=dev)
+                check(torch.equal(i, lowest.expand(b, k)),
+                      f"{name}/{type_name}: not the lowest {k} indices")
 
             itemsize = y.element_size()
             in_bytes = b * f * itemsize + n * f * itemsize + (4 * n if quant else 0)
             part_bytes = 8 * n_splits * b * kb
             ops = 2.0 * b * n * f
-            ms = time_ms(torch, lambda: T.topk_dot_batch_cuda(
-                xs_in, y, k=k, scales=scales))
-            part_ms = time_ms(torch, lambda: T.topk_dot_partial(
-                xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
-                scales=scales))
-            merge_ms = time_ms(torch, lambda: T.topk_merge(pv, pi, k=k))
+            nq0 = len(NOT_QUEUED)
+            at = f"{name}/{type_name}"
+
+            def whole_fn():
+                return T.topk_dot_batch_cuda(xs_in, y, k=k, scales=scales)
+
+            def part_fn():
+                return T.topk_dot_partial(
+                    xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
+                    scales=scales)
+
+            def merge_fn():
+                return T.topk_merge(pv, pi, k=k)
+
+            ms = time_ms(torch, whole_fn, f"{at}/whole")
+            part_ms = time_ms(torch, part_fn, f"{at}/partial")
+            merge_ms = time_ms(torch, merge_fn, f"{at}/merge")
             line = {
                 "phase": "kernel", "case": name, "type": type_name,
                 "B": b, "I": n, "F": f, "k": k, "kb": kb,
@@ -223,51 +304,72 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
                 "partial": part, "whole": whole,
                 "merge": {"max_abs_err": merge_err},
                 "ms": ms, "partial_ms": part_ms, "merge_ms": merge_ms,
+                "wall_ms": wall_ms(torch, whole_fn),
+                "partial_wall_ms": wall_ms(torch, part_fn),
+                "merge_wall_ms": wall_ms(torch, merge_fn),
             }
             line["bound_ms"], line["bound_by"] = bound(
                 in_bytes + 8 * b * k, ops, type_name)
             line["partial_bound_ms"], line["partial_bound_by"] = bound(
                 in_bytes + part_bytes, ops, type_name)
+            # the merge needs only each list's first k entries
             line["merge_bound_ms"], line["merge_bound_by"] = bound(
-                part_bytes + 8 * b * k, 0, type_name)
+                8 * n_splits * b * k + 8 * b * k, 0, type_name)
             if n >= BIG_ITEMS:
                 reps = 3 if b * n > 1e9 else 5
                 line["plain_ms"] = time_ms(torch, lambda: T.topk_dot_batch_reference(
-                    xs_in, y, k=k, scales=scales), reps=reps, warmup=1)
-                line["library_ms"] = library_ms(torch, xk, y, k, scales)
-            if name == "serving":
-                line["partial_plain_ms"] = time_ms(
-                    torch, lambda: T.topk_dot_partial_reference(
-                        xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
-                        scales=scales), reps=5, warmup=1)
-                line["merge_plain_ms"] = time_ms(
-                    torch, lambda: T.topk_merge_reference(pv, pi, k=k),
-                    reps=20, warmup=2)
+                    xs_in, y, k=k, scales=scales), f"{at}/plain", reps=reps,
+                    warmup=1)
+                line["library_ms"] = library_ms(torch, xk, y, k, scales,
+                                                f"{at}/library")
+                line["library_wall_ms"] = wall_ms(
+                    torch, library_call(torch, xk, y, k, scales),
+                    reps=5 if b > 1000 else 15)
                 # one library call computing the merge's function: the
                 # top-k of the union of the partial lists
                 flat = pv.permute(1, 0, 2).reshape(b, -1).contiguous()
                 line["merge_library_ms"] = time_ms(
+                    torch, lambda: torch.topk(flat, k, dim=1),
+                    f"{at}/merge_library")
+                line["merge_library_wall_ms"] = wall_ms(
                     torch, lambda: torch.topk(flat, k, dim=1))
+                del flat
+            if name == "serving":
+                line["partial_plain_ms"] = time_ms(
+                    torch, lambda: T.topk_dot_partial_reference(
+                        xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
+                        scales=scales), f"{at}/partial_plain", reps=5,
+                    warmup=1)
+                line["merge_plain_ms"] = time_ms(
+                    torch, lambda: T.topk_merge_reference(pv, pi, k=k),
+                    f"{at}/merge_plain", reps=20, warmup=2)
                 at_serving[type_name] = line
+            # device readings of this line that may hold host time
+            line["not_queued"] = [w.rsplit("/", 1)[1]
+                                  for w in NOT_QUEUED[nq0:]]
+            if name == "single-row":
+                at_single[type_name] = line
             emit(line)
             lines.append(line)
             del y, pv, pi, rv, ri, yf, xkf
         del base, y32, xs32
         torch.cuda.empty_cache()
-    return lines, at_serving
+    return lines, at_serving, at_single
 
 
-def library_ms(torch, xk, y, k, scales):
+def library_call(torch, xk, y, k, scales):
     """torch.matmul + torch.topk over the same inputs (timed only; the port
     never calls it). The int8 form multiplies the int8 values held as bf16
     (exact) and applies the item scales before the top-k."""
     if scales is None:
-        return time_ms(torch, lambda: torch.topk(torch.matmul(xk, y.T), k, dim=1),
-                       reps=5 if xk.shape[0] > 1000 else 20)
+        return lambda: torch.topk(torch.matmul(xk, y.T), k, dim=1)
     xb, yb = xk.to(torch.bfloat16), y.to(torch.bfloat16)
-    return time_ms(torch, lambda: torch.topk(
-        torch.matmul(xb, yb.T).float() * scales, k, dim=1),
-        reps=5 if xk.shape[0] > 1000 else 20)
+    return lambda: torch.topk(torch.matmul(xb, yb.T).float() * scales, k, dim=1)
+
+
+def library_ms(torch, xk, y, k, scales, what: str):
+    return time_ms(torch, library_call(torch, xk, y, k, scales), what,
+                   reps=5 if xk.shape[0] > 1000 else 20)
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +606,7 @@ def main() -> int:
           "build_s": build, "build_wall_s": time.monotonic() - t0})
 
     t0 = time.monotonic()
-    lines, at_serving = kernel_phase(torch, T)
+    lines, at_serving, at_single = kernel_phase(torch, T)
     emit({"phase": "kernels-done", "checks": len(lines),
           "seconds": time.monotonic() - t0})
 
@@ -531,24 +633,33 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     bf, i8 = at_serving["bfloat16"], at_serving["int8"]
+    bf1 = at_single["bfloat16"]
     kernels = [
         {
             "name": "topk_dot_partial", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": launches["topk_dot_partial"],
             "max_abs_err": max(l["partial"]["max_abs_err"] for l in lines),
-            "ms": bf["partial_ms"], "plain_ms": bf["partial_plain_ms"],
+            "ms": bf["partial_ms"], "wall_ms": bf["partial_wall_ms"],
+            "plain_ms": bf["partial_plain_ms"],
             "bound_ms": bf["partial_bound_ms"],
             "bound_by": bf["partial_bound_by"],
             "library_ms": bf["library_ms"],
+            "library_wall_ms": bf["library_wall_ms"],
+            "queued": queued(bf, ms="partial", plain_ms="partial_plain",
+                             library_ms="library"),
             # per instantiation; score-mode exact serves the bf16 view,
             # quantized the int8 one, and no serving mode the f32 one
             "variants": [
                 {"type": t, "launches": n_launch,
                  "ms": at_serving[t]["partial_ms"],
+                 "wall_ms": at_serving[t]["partial_wall_ms"],
                  "plain_ms": at_serving[t]["partial_plain_ms"],
                  "bound_ms": at_serving[t]["partial_bound_ms"],
-                 "library_ms": at_serving[t]["library_ms"]}
+                 "library_ms": at_serving[t]["library_ms"],
+                 "queued": queued(at_serving[t], ms="partial",
+                                  plain_ms="partial_plain",
+                                  library_ms="library")}
                 for t, n_launch in (
                     (t, serving["exact"]["partial_launches_by_type"][t]
                      + serving["quantized"]["partial_launches_by_type"][t])
@@ -563,15 +674,35 @@ def main() -> int:
             "source": KERNEL_SOURCE, "replaces": MERGE_REPLACES,
             "launches": launches["topk_merge"],
             "max_abs_err": max(l["merge"]["max_abs_err"] for l in lines),
-            "ms": bf["merge_ms"], "plain_ms": bf["merge_plain_ms"],
+            "ms": bf["merge_ms"], "wall_ms": bf["merge_wall_ms"],
+            "plain_ms": bf["merge_plain_ms"],
             "bound_ms": bf["merge_bound_ms"], "bound_by": bf["merge_bound_by"],
             "library_ms": bf["merge_library_ms"],
+            "library_wall_ms": bf["merge_library_wall_ms"],
+            "queued": queued(bf, ms="merge", plain_ms="merge_plain",
+                             library_ms="merge_library"),
             "shape": {"S": bf["splits"], "B": bf["B"], "kb": bf["kb"],
                       "k": bf["k"]},
             "int8_ms": i8["merge_ms"],
+            # B=1 (single-row case): one request in a dispatch
+            "b1": {"S": bf1["splits"], "kb": bf1["kb"], "k": bf1["k"],
+                   "ms": bf1["merge_ms"], "wall_ms": bf1["merge_wall_ms"],
+                   "bound_ms": bf1["merge_bound_ms"],
+                   "library_ms": bf1["merge_library_ms"],
+                   "library_wall_ms": bf1["merge_library_wall_ms"],
+                   "whole_call_ms": bf1["ms"],
+                   "whole_call_wall_ms": bf1["wall_ms"],
+                   "whole_call_library_ms": bf1["library_ms"],
+                   "whole_call_library_wall_ms": bf1["library_wall_ms"],
+                   "queued": queued(bf1, ms="merge", library_ms="merge_library",
+                                    whole_call_ms="whole",
+                                    whole_call_library_ms="library")},
             "checked": True,
         },
     ]
+    # every device reading whose calls were not all issued while the card
+    # was busy with the calls before them
+    emit({"phase": "timing", "not_queued": NOT_QUEUED})
     emit({"phase": "done", "seconds": time.monotonic() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -30,15 +30,14 @@ import ctypes
 import torch
 
 from oryx_tpu_torch.ops import _build
-from oryx_tpu_torch.ops.transfer import is_pitched
+from oryx_tpu_torch.ops.transfer import is_pitched, to_pitched
 
 MAX_K = 128  # the running top-k is at most one 128-slot list per row
 
-# block geometry of the partial kernel; must match csrc/topk_dot.cu
-ROWS_PER_BLOCK = 64   # bf16 / int8: one wgmma warpgroup (M = 64)
-TILE_ITEMS = 64       # bf16 / int8: items per TMA tile (wgmma N = 64)
-F32_ROWS_PER_BLOCK = 32
-F32_TILE_ITEMS = 128
+# block geometry of the partial kernel, every type; must match
+# csrc/topk_dot.cu
+ROWS_PER_BLOCK = 64   # one warpgroup (wgmma M = 64)
+TILE_ITEMS = 64       # items per TMA tile (wgmma N = 64)
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched
@@ -72,15 +71,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = (
                 [p, p] + ([p] if dtype == torch.int8 else []) + [p, p]
-                + [i] * 7 + [p]
+                + [i] * 8 + [p]
             )
             fn.restype = i
         lib.oryx_topk_merge.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.oryx_topk_merge.restype = i
         for name in ("oryx_topk_partial_smem_bytes",
-                     "oryx_topk_partial_blocks_per_sm"):
-            getattr(lib, name).argtypes = [i, i, i]
-            getattr(lib, name).restype = i
+                     "oryx_topk_partial_blocks_per_sm",
+                     "oryx_topk_partial_streams_queries"):
+            if hasattr(lib, name):  # a parent build may predate one
+                getattr(lib, name).argtypes = [i, i, i]
+                getattr(lib, name).restype = i
         lib.oryx_topk_max_features.argtypes = [i, i]
         lib.oryx_topk_max_features.restype = i
         lib._oryx_bound = True
@@ -153,6 +154,16 @@ def _scores(xs: torch.Tensor, y: torch.Tensor, scales=None) -> torch.Tensor:
     if scales is not None:
         s = s * scales.float()[None, :]
     return s
+
+
+def f32_tolerance(features: int) -> float:
+    """How far an f32 score of ``features`` unit-variance products, from
+    the kernel or the plain version, may lie from its exact (float64)
+    value: 32 f32 unit roundoffs per feature. Full-f32 sums in any order
+    drift by about one roundoff per feature; TF32 products (10-bit
+    mantissas) drift by about 4e-4 sqrt(features), which this rejects.
+    The checks of the f32 kernel on the card hold it to this."""
+    return 32 * 2.0 ** -24 * features
 
 
 def quantize_queries(xs: torch.Tensor):
@@ -234,9 +245,9 @@ def merge_top(av, ai, bv, bi):
 
 def block_geometry(dtype: torch.dtype) -> tuple[int, int]:
     """(query rows per block, items per tile) of the partial kernel for an
-    item matrix of ``dtype``."""
-    if dtype == torch.float32:
-        return F32_ROWS_PER_BLOCK, F32_TILE_ITEMS
+    item matrix of ``dtype``: one geometry for every type it takes."""
+    if dtype not in _PARTIAL_ENTRY:
+        raise ValueError(f"no partial kernel for {dtype}")
     return ROWS_PER_BLOCK, TILE_ITEMS
 
 
@@ -262,8 +273,9 @@ _MAX_FEATURES: dict[tuple, int] = {}
 def max_features(kb: int, dtype: torch.dtype,
                  lib: ctypes.CDLL | None = None) -> int:
     """The widest item rows (features) the partial kernel takes for a
-    top-kb of an item matrix of ``dtype``: a block's shared memory holds
-    the query block, whose size grows with the width (asked of the kernel
+    top-kb of an item matrix of ``dtype``: a bf16 or int8 block's shared
+    memory holds the query block, whose size grows with the width; f32
+    streams it past a width and takes up to 65,535 (asked of the kernel
     library once per kb and type)."""
     lib = _lib() if lib is None else bind(lib)
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -276,8 +288,9 @@ def max_features(kb: int, dtype: torch.dtype,
 def check_features(features: int, dtype: torch.dtype) -> None:
     """Raise ValueError unless the kernel serves ``features``-wide item
     rows of ``dtype`` at every k up to MAX_K (bf16 up to 1,024 features,
-    int8 up to 2,048). A model checks it when it is built on the card, so a
-    too-wide one fails once, at load, instead of on every request."""
+    int8 up to 2,048, f32 up to 65,535). A model checks it when it is built
+    on the card, so a too-wide one fails once, at load, instead of on every
+    request."""
     widest = max_features(MAX_K, dtype)
     if features > widest:
         raise ValueError(
@@ -335,9 +348,11 @@ def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
                      scales=None, lib: ctypes.CDLL | None = None):
     """Launch ``topk_dot_partial``: [S, B, kb] sorted partial top-kb lists
     (f32 values, int32 global indices, (-inf, -1) in unfilled slots). ``y``
-    is a pitched item view (``check_item_view``). ``lib`` launches a
-    variant's build instead of the checkout's (the kernel probe's use). On
-    the CPU: ``topk_dot_partial_reference``."""
+    is a pitched item view (``check_item_view``); f32 queries too wide for
+    a resident query block are passed on pitched as well (a copy where
+    ``xs`` is not), as the kernel then tiles them with TMA. ``lib`` launches a variant's build instead of the
+    checkout's (the kernel probe's use). On the CPU:
+    ``topk_dot_partial_reference``."""
     if y.device.type == "cpu":
         return topk_dot_partial_reference(
             xs, y, kb=kb, n_splits=n_splits, split_len=split_len,
@@ -366,6 +381,9 @@ def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
         )
     if quantized and scales.dtype != torch.float32:
         raise ValueError("item scales must be float32")
+    if y.dtype == torch.float32 and lib.oryx_topk_partial_streams_queries(
+            n_feat, kb, 4):
+        xs = to_pitched(xs)
     part_v = torch.empty((n_splits, b, kb), dtype=torch.float32,
                          device=y.device)
     part_i = torch.empty((n_splits, b, kb), dtype=torch.int32,
@@ -374,7 +392,7 @@ def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
         [scales.data_ptr()] if quantized else [])
     fn = getattr(lib, _PARTIAL_ENTRY[y.dtype])
     rc = fn(*ptrs, part_v.data_ptr(), part_i.data_ptr(), b, n_items, n_feat,
-            y.stride(0), kb, n_splits, split_len,
+            y.stride(0), xs.stride(0), kb, n_splits, split_len,
             torch.cuda.current_stream(y.device).cuda_stream)
     _check(rc, "topk_dot_partial launch")
     LAUNCHES["topk_dot_partial"] += 1
@@ -382,9 +400,10 @@ def topk_dot_partial(xs, y, *, kb: int, n_splits: int, split_len: int,
     return part_v, part_i
 
 
-def topk_merge(part_v, part_i, *, k: int):
+def topk_merge(part_v, part_i, *, k: int, lib: ctypes.CDLL | None = None):
     """Launch ``topk_merge``: the final [B, k] top-k over [S, B, kb]
-    sorted partial lists. On the CPU: ``topk_merge_reference``."""
+    sorted partial lists (``lib`` as for ``topk_dot_partial``). On the CPU:
+    ``topk_merge_reference``."""
     if part_v.device.type == "cpu":
         return topk_merge_reference(part_v, part_i, k=k)
     s, b, kb = part_v.shape
@@ -395,7 +414,8 @@ def topk_merge(part_v, part_i, *, k: int):
     _check_tensors(part_v, part_i)
     out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=part_v.device)
-    rc = _lib().oryx_topk_merge(
+    lib = _lib() if lib is None else bind(lib)
+    rc = lib.oryx_topk_merge(
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), b, s, kb, k,
         torch.cuda.current_stream(part_v.device).cuda_stream,

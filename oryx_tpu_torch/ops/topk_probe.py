@@ -1,23 +1,27 @@
-"""Measure the partial top-k kernel on the card: where its time goes, and
-how two versions of its source compare.
+"""Measure the top-k kernels on the card: where the partial kernel's time
+goes, and how two versions of their source compare.
 
     python3 -m oryx_tpu_torch.ops.topk_probe ablate
     python3 -m oryx_tpu_torch.ops.topk_probe ab --parent OLD_topk_dot.cu
 
 ``ablate`` builds csrc/topk_dot.cu with one of its ``ORYX_PROBE_NO_*``
-switches set at a time and times each build: without the dot (the wgmma
-products; the TMA loads still stream, and every score is then 0, so little
-is selected), without the selection (no compares: the loop, the loads and
-the products alone), without the insertion (the candidates are found but
-neither appended nor flushed). ``ab`` builds a parent source
-and the checkout's, times them in turns (parent, change, change, parent)
-and reports whether the top-k merged from their partials is identical. A
-parent whose library has no ``oryx_topk_abi`` symbol (csrc/topk_dot.cu as
-of its first version: no row pitch, 32 rows and 128-item tiles per block)
-is fed a dense copy of the same item values; the checkout's build gets the
-pitched view. Both time ``topk_dot_partial`` alone (median of 15 launches,
-CUDA events), each build with its own one-wave split plan, and print one
-JSON line per shape and type. Builds go through ops/_build.py.
+switches set at a time and times each build's partial kernel for every
+type: without the dot (the wgmma products, or the f32 FMA loop; the TMA
+loads still stream, and every score is then 0, so little is selected),
+without the selection (no compares: the loop, the loads and the products
+alone), without the insertion (the candidates are found but neither
+appended nor flushed). ``ab`` builds a parent source and the checkout's and
+times them in turns (parent, change, change, parent): the partial kernel,
+each build with its own one-wave split plan, with whether the top-k merged
+from their partials is identical; then the merge kernel of each build on
+the same partials (the change's), with whether their outputs are identical
+and equal to the plain merge's. A parent whose library reports
+``oryx_topk_abi() < 3`` (csrc/topk_dot.cu before the f32 redesign) takes no
+query pitch and tiles f32 items 128 at a time for 32 rows. Times are
+device times, medians of 15 launches (ops/timing.py ``device_ms``; a
+line's ``queued`` is false where a reading may hold the host's time to
+issue a launch); one JSON line per shape and type.
+Builds go through ops/_build.py.
 """
 
 from __future__ import annotations
@@ -25,11 +29,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
 from pathlib import Path
 
 from oryx_tpu_torch.ops import _build
 from oryx_tpu_torch.ops import topk as T
+from oryx_tpu_torch.ops.timing import device_ms
 from oryx_tpu_torch.ops.transfer import to_pitched
 
 VARIANTS = {
@@ -46,7 +50,7 @@ SHAPES = (("serving", 512, 1_000_000, 50, 32),
           ("wide", 64, 1_000_000, 250, 128),
           ("single-row", 1, 1_000_000, 50, 10))
 
-LEGACY_GEOMETRY = (32, 128)  # rows per block, items per tile, every type
+ABI2_F32_GEOMETRY = (32, 128)  # rows per block, items per tile
 
 
 def _inputs(torch, gen, b, n, f, type_name):
@@ -59,20 +63,12 @@ def _inputs(torch, gen, b, n, f, type_name):
     return xs32.to(dtype), to_pitched(y32.to(dtype)), None
 
 
-def _is_legacy(lib) -> bool:
-    try:
-        lib.oryx_topk_abi
-    except AttributeError:
-        return True
-    return False
-
-
-def _legacy_launch(torch, lib, xs, y, scales, kb, n_splits, split_len):
-    """The first version's partial entry points: contiguous y, no pitch."""
+def _abi2_launch(torch, lib, xs, y, scales, kb, n_splits, split_len):
+    """A version-2 library's partial entry points: no query pitch."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    name = T._PARTIAL_ENTRY[y.dtype]
-    fn = getattr(lib, name)
-    fn.argtypes = [p, p] + ([p] if scales is not None else []) + [p, p] + [i] * 6 + [p]
+    fn = getattr(lib, T._PARTIAL_ENTRY[y.dtype])
+    fn.argtypes = ([p, p] + ([p] if scales is not None else []) + [p, p]
+                   + [i] * 7 + [p])
     fn.restype = i
     part_v = torch.empty((n_splits, xs.shape[0], kb), dtype=torch.float32,
                          device=y.device)
@@ -80,26 +76,22 @@ def _legacy_launch(torch, lib, xs, y, scales, kb, n_splits, split_len):
     ptrs = [xs.data_ptr(), y.data_ptr()] + (
         [scales.data_ptr()] if scales is not None else [])
     rc = fn(*ptrs, part_v.data_ptr(), part_i.data_ptr(), xs.shape[0],
-            y.shape[0], xs.shape[1], kb, n_splits, split_len,
+            y.shape[0], xs.shape[1], y.stride(0), kb, n_splits, split_len,
             torch.cuda.current_stream().cuda_stream)
-    T._check(rc, "legacy topk_dot_partial launch")
+    T._check(rc, "version-2 topk_dot_partial launch")
     return part_v, part_i
 
 
-def time_partial(torch, lib, xs, y, scales, k, reps=15):
-    """(median ms, final values, final indices) of one build's partial
-    kernel on these inputs, launched with its own one-wave split plan; the
-    final top-k is the plain merge of its partials."""
+def time_partial(torch, lib, xs, y, scales, k):
+    """(median ms, queued, partial values, partial indices, final values,
+    final indices) of one build's partial kernel on these inputs, launched with
+    its own one-wave split plan; the final top-k is the plain merge of its
+    partials."""
     kb = T._next_pow2(k)
-    legacy = _is_legacy(lib)
-    if legacy:
-        lib.oryx_topk_partial_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-        lib.oryx_topk_partial_blocks_per_sm.restype = ctypes.c_int
-        y = y.contiguous()
-        rows, tile = LEGACY_GEOMETRY
-    else:
-        T.bind(lib)
-        rows, tile = T.block_geometry(y.dtype)
+    old = lib.oryx_topk_abi() < 3
+    T.bind(lib)
+    rows, tile = (ABI2_F32_GEOMETRY if old and y.dtype == torch.float32
+                  else T.block_geometry(y.dtype))
     per_sm = lib.oryx_topk_partial_blocks_per_sm(
         xs.shape[1], kb, y.element_size())
     if per_sm <= 0:
@@ -109,24 +101,32 @@ def time_partial(torch, lib, xs, y, scales, k, reps=15):
                                         rows, tile)
 
     def launch():
-        if legacy:
-            return _legacy_launch(torch, lib, xs, y, scales, kb, n_splits,
-                                  split_len)
+        if old:
+            return _abi2_launch(torch, lib, xs, y, scales, kb, n_splits,
+                                split_len)
         return T.topk_dot_partial(xs, y, kb=kb, n_splits=n_splits,
                                   split_len=split_len, scales=scales, lib=lib)
 
-    for _ in range(3):
-        launch()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        pv, pi = launch()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return (statistics.median(times),) + T.topk_merge_reference(pv, pi, k=k)
+    ms, (pv, pi), queued = device_ms(torch, launch)
+    return (ms, queued, pv, pi) + T.topk_merge_reference(pv, pi, k=k)
+
+
+def merge_ab(torch, libs, order, pv, pi, k) -> dict:
+    """Each build's merge kernel on the same partials, in turns: median ms
+    per turn, and whether the outputs are identical to each other and to
+    the plain merge's."""
+    out = {"S": pv.shape[0], "kb": pv.shape[2]}
+    results, out["queued"] = {}, True
+    for label in order:
+        ms, res, queued = device_ms(
+            torch, lambda lib=libs[label]: T.topk_merge(pv, pi, k=k, lib=lib))
+        out.setdefault(f"{label}_ms", []).append(ms)
+        out["queued"] = out["queued"] and queued
+        results[label] = res
+    ref = T.topk_merge_reference(pv, pi, k=k)
+    out["identical"] = all(
+        torch.equal(a, b) for res in results.values() for a, b in zip(res, ref))
+    return out
 
 
 def main(argv=None) -> int:
@@ -144,35 +144,37 @@ def main(argv=None) -> int:
         builds = {label: ("topk_dot", macros, None)
                   for label, macros in VARIANTS.items()}
         order = list(VARIANTS)
-        types = ("bfloat16", "int8")
     else:
         builds = {"parent": ("topk_dot", (), args.parent.resolve()),
                   "change": ("topk_dot", (), None)}
         order = ["parent", "change", "change", "parent"]
-        types = ("float32", "bfloat16", "int8")
     _build.build_all(variants=builds)
     libs = {label: _build.load(*spec) for label, spec in builds.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    device = torch.cuda.get_device_name(0)
     for name, b, n, f, k in SHAPES:
-        for type_name in types:
+        for type_name in ("float32", "bfloat16", "int8"):
             xs, y, scales = _inputs(torch, gen, b, n, f, type_name)
             line = {"shape": name, "type": type_name, "B": b, "I": n, "F": f,
-                    "k": k, "device": torch.cuda.get_device_name(0)}
-            outs = {}
+                    "k": k, "device": device}
+            outs, line["queued"] = {}, True
             for label in order:
-                ms, v, ix = time_partial(torch, libs[label], xs, y, scales, k)
+                ms, queued, pv, pi, v, ix = time_partial(
+                    torch, libs[label], xs, y, scales, k)
                 line.setdefault(f"{label}_ms", []).append(ms)
-                outs[label] = (v, ix)
+                line["queued"] = line["queued"] and queued
+                outs[label] = (pv, pi, v, ix)
             if args.cmd == "ab":
-                line["identical_topk"] = all(
-                    torch.equal(a, c)
-                    for a, c in zip(outs["parent"], outs["change"]))
-                pv, pix = outs["parent"]
-                cv, cix = outs["change"]
-                line["max_abs_diff"] = (pv - cv).abs().max().item()
-                line["index_mismatches"] = int((pix != cix).sum().item())
+                _, _, par_v, par_i = outs["parent"]
+                pv, pi, cv, cix = outs["change"]
+                line["identical_topk"] = (torch.equal(par_v, cv)
+                                          and torch.equal(par_i, cix))
+                line["max_abs_diff"] = (par_v - cv).abs().max().item()
+                line["index_mismatches"] = int((par_i != cix).sum().item())
+                # the merge of each build on the change's partials
+                line["merge"] = merge_ab(torch, libs, order, pv, pi, k)
             print(json.dumps(line), flush=True)
-            del xs, y, scales
+            del xs, y, scales, outs
             torch.cuda.empty_cache()
     return 0
 

@@ -62,8 +62,17 @@ def test_kernels_match_plain_versions(cuda_device, dtype, n, f, b, k, dup):
     if dtype == torch.int8:
         assert torch.equal(v, v_r) and torch.equal(i, i_r)
     else:
-        torch.testing.assert_close(v, v_r, atol=1e-3, rtol=1e-3)
+        _close(v, v_r, dtype, f)
         assert (i == i_r).float().mean().item() > 0.99
+
+
+def _close(v, v_r, dtype, f):
+    """Float kernel values against the plain version's: bf16 within 1e-3
+    (atol and rtol); f32 within two f32 drifts, absolute."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(v, v_r, atol=2 * T.f32_tolerance(f), rtol=0)
+    else:
+        torch.testing.assert_close(v, v_r, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -80,7 +89,7 @@ def test_kernel_reads_a_row_offset_view(cuda_device, dtype, f):
     if dtype == torch.int8:
         assert torch.equal(v, v_r) and torch.equal(i, i_r)
     else:
-        torch.testing.assert_close(v, v_r, atol=1e-3, rtol=1e-3)
+        _close(v, v_r, dtype, f)
         assert (i == i_r).float().mean().item() > 0.99
 
 
@@ -92,6 +101,162 @@ def test_merge_kernel_is_bit_identical(cuda_device):
     v, i = T.topk_merge(pv, pi, k=20)
     v_r, i_r = T.topk_merge_reference(pv, pi, k=20)
     assert torch.equal(v, v_r) and torch.equal(i, i_r)
+
+
+def _sorted_partials(dev, s, b, kb, seed, levels=50):
+    """[S, B, kb] partial lists as the partial kernel writes them: sorted by
+    (value desc, index asc), indices distinct across lists, values from a
+    few levels (heavy ties); every 7th list holds only a few real entries
+    and ends in (-inf, -1) padding."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(0, levels, (s, b, kb), generator=g, device=dev).float()
+    v = torch.sort(v, dim=-1, descending=True).values
+    i = torch.randperm(s * kb, generator=g, device=dev).view(s, 1, kb)
+    i = torch.sort(i, dim=-1).values.expand(s, b, kb).to(torch.int32).clone()
+    for j in range(0, s, 7):
+        v[j, :, j % kb:] = float("-inf")
+        i[j, :, j % kb:] = -1
+    return v.contiguous(), i
+
+
+@pytest.mark.parametrize("s", [1, 2, 66, 521, 2000])
+@pytest.mark.parametrize("b", [1, 5, 512])
+@pytest.mark.parametrize("k,kb", [(1, 2), (10, 16), (32, 64), (100, 128),
+                                  (128, 128)])
+def test_merge_matches_plain_version(cuda_device, s, b, k, kb):
+    pv, pi = _sorted_partials(cuda_device, s, b, kb, seed=s * b + k)
+    T.reset_launches()
+    v, i = T.topk_merge(pv, pi, k=k)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["topk_merge"] == 1
+    v_r, i_r = T.topk_merge_reference(pv, pi, k=k)
+    assert torch.equal(v, v_r) and torch.equal(i, i_r)
+
+
+@pytest.mark.parametrize("s,k,kb", [(66, 64, 64), (521, 128, 128),
+                                    (2000, 128, 128), (521, 10, 16)])
+@pytest.mark.parametrize("layout", ["interleaved", "padding"])
+def test_merge_general_path_is_exact(cuda_device, s, k, kb, layout):
+    # more entries meet the merge's bound than it sorts in shared memory.
+    # "interleaved": lists 0..k-2 hold items j, j + k - 1, j + 2 (k - 1), ...
+    # at one value, list k-1 a worse run of the same value, the rest lower
+    # values; the bound is then about (k-1)^2 entries deep (k=10: 82, still
+    # in shared memory). "padding": only the first 3 lists hold one real
+    # entry, the rest is (-inf, -1), which is then the bound itself.
+    b = 3
+    dev = cuda_device
+    pos = torch.arange(kb, device=dev)
+    if layout == "interleaved":
+        pv = torch.zeros((s, b, kb), device=dev)
+        pv[:k] = 1.0
+        lists = torch.arange(s, device=dev)[:, None]
+        idx = torch.where(lists < k - 1, lists + pos * (k - 1),
+                          1_000_000 + lists * kb + pos)
+        pi = idx[:, None, :].expand(s, b, kb).to(torch.int32).contiguous()
+    else:
+        pv = torch.full((s, b, kb), float("-inf"), device=dev)
+        pi = torch.full((s, b, kb), -1, dtype=torch.int32, device=dev)
+        pv[:3, :, 0] = torch.tensor([2.0, 1.0, 2.0], device=dev)[:, None]
+        pi[:3, :, 0] = torch.tensor([7, 3, 5], dtype=torch.int32,
+                                    device=dev)[:, None]
+    v, i = T.topk_merge(pv, pi, k=k)
+    v_r, i_r = T.topk_merge_reference(pv, pi, k=k)
+    assert torch.equal(v, v_r) and torch.equal(i, i_r)
+
+
+def _near_tie_agree(v, i, v_r, i_r, true_score, tol):
+    """f32 kernel output against its plain version: values within 2 tol
+    (absolute), -inf padding identical, and where an index differs the
+    kernel's item truly (float64) scores within 2 tol of the plain
+    version's value at that slot."""
+    torch.testing.assert_close(v, v_r, atol=2 * tol, rtol=0)
+    pad = torch.isinf(v_r)
+    assert torch.equal(torch.isinf(v), pad) and torch.equal(i[pad], i_r[pad])
+    where = (i != i_r).nonzero(as_tuple=True)
+    if where[0].numel():
+        gap = (true_score(where[-2], i[where]) - v_r[where].double()).abs()
+        assert bool((gap <= 2 * tol).all())
+
+
+def _err_vs_f64(v, i, true_score):
+    """Largest distance of the finite values [B, k] from the float64 scores
+    of the items they name."""
+    fin = ~torch.isinf(v)
+    rows = torch.arange(v.shape[0], device=v.device)[:, None].expand_as(v)
+    return (v[fin].double() - true_score(rows[fin], i[fin])).abs().max().item()
+
+
+@pytest.mark.parametrize("f", [1, 16, 33, 50, 250, 600, "widest"])
+@pytest.mark.parametrize("b", [1, 13, 64, 65, 512])
+def test_f32_partial_matches_plain_version(cuda_device, f, b):
+    # the f32 partial kernel (FMA in wgmma's accumulator layout over TMA
+    # tiles; past ~450 features the queries stream through the ring) and
+    # the whole call, against their plain versions
+    if f == "widest":
+        f = T.max_features(T.MAX_K, torch.float32)
+    n = 20000 if f <= 600 else 1000
+    xs, y, _ = _inputs(torch.float32, cuda_device, n=n, f=f, b=b)
+    k = 100 if f >= 250 else 10
+    kb = T._next_pow2(k)
+    tol = T.f32_tolerance(f)
+    yf = y.float()
+
+    def true_score(rows, idx):
+        return (xs[rows].double() * yf[idx.long()].double()).sum(dim=1)
+
+    n_splits, split_len = T.launch_plan(b, y, kb)
+    T.reset_launches()
+    pv, pi = T.topk_dot_partial(xs, y, kb=kb, n_splits=n_splits,
+                                split_len=split_len)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["topk_dot_partial"] == 1
+    rv, ri = T.topk_dot_partial_reference(xs, y, kb=kb, n_splits=n_splits,
+                                          split_len=split_len)
+    _near_tie_agree(pv, pi, rv, ri, true_score, tol)
+    v, i = T.topk_dot_batch_cuda(xs, y, k=k)
+    v_r, i_r = T.topk_dot_batch_reference(xs, y, k=k)
+    _near_tie_agree(v, i, v_r, i_r, true_score, tol)
+    assert _err_vs_f64(v, i, true_score) <= tol
+
+
+@pytest.mark.parametrize("f", [16, 50, 250, 600, "widest"])
+def test_f32_tolerance_rejects_tf32(cuda_device, f):
+    # the f32 checks tell full-f32 products from TF32 ones: the kernel's
+    # values stay within f32_tolerance of their float64 scores, the plain
+    # version's with TF32 switched on do not
+    if f == "widest":
+        f = T.max_features(T.MAX_K, torch.float32)
+    n, b, k = (20000 if f <= 600 else 1000), 64, 32
+    xs, y, _ = _inputs(torch.float32, cuda_device, n=n, f=f, b=b)
+
+    def true_score(rows, idx):
+        return (xs[rows].double() * y[idx.long()].double()).sum(dim=1)
+
+    v, i = T.topk_dot_batch_cuda(xs, y, k=k)
+    assert _err_vs_f64(v, i, true_score) <= T.f32_tolerance(f)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        v_t, i_t = torch.topk(xs @ y.T, k, dim=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _err_vs_f64(v_t, i_t.to(torch.int32), true_score) > T.f32_tolerance(f)
+
+
+def test_f32_queries_are_pitched_only_when_they_stream(cuda_device):
+    # a resident f32 query block is staged with element loads at any row
+    # pitch; only rows too wide for it stream their queries by TMA
+    lib = T._lib()
+    assert lib.oryx_topk_partial_streams_queries(50, 32, 4) == 0
+    assert lib.oryx_topk_partial_streams_queries(
+        T.max_features(128, torch.float32), 128, 4) == 1
+    assert lib.oryx_topk_partial_streams_queries(1024, 128, 2) == 0
+    xs, y, _ = _inputs(torch.float32, cuda_device, n=3000, f=50, b=9)
+    assert not is_pitched(xs)  # a dense [9, 50] block: 200-byte rows
+    pv, pi = T.topk_dot_partial(xs, y, kb=16, n_splits=1, split_len=3008)
+    rv, ri = T.topk_dot_partial_reference(xs, y, kb=16, n_splits=1,
+                                          split_len=3008)
+    torch.testing.assert_close(pv, rv, atol=2 * T.f32_tolerance(50), rtol=0)
 
 
 def test_serving_path_launches_the_kernels(cuda_device):
@@ -123,6 +288,16 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         T.topk_dot_partial(xs, y[:, :10].contiguous(), kb=8, n_splits=1,
                            split_len=20096)  # shape mismatch
+    pv = torch.zeros((3, 4, 16), device=cuda_device)
+    pi = torch.zeros((3, 4, 16), dtype=torch.int32, device=cuda_device)
+    T.reset_launches()
+    with pytest.raises(ValueError):
+        T.topk_merge(pv, pi, k=17)  # k > kb
+    with pytest.raises(ValueError):
+        T.topk_merge(pv, pi.long(), k=5)  # int64 indices
+    with pytest.raises(ValueError):
+        T.topk_merge(pv.transpose(0, 1), pi.transpose(0, 1), k=5)  # strided
+    assert T.LAUNCHES["topk_merge"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -162,7 +337,12 @@ def test_shared_memory_budget_of_the_library(cuda_device, dtype, f, kb):
     assert T.max_features(kb, dtype) >= f
     widest = T.max_features(kb, dtype)
     assert lib.oryx_topk_partial_smem_bytes(widest, kb, itemsize) <= limit
-    assert lib.oryx_topk_partial_smem_bytes(widest + 1, kb, itemsize) > limit
+    if dtype == torch.float32:
+        # f32 streams its query block through the ring: every width fits,
+        # up to the library's bound
+        assert widest == 65535
+    else:
+        assert lib.oryx_topk_partial_smem_bytes(widest + 1, kb, itemsize) > limit
 
 
 def test_serving_shape_keeps_four_blocks_per_sm(cuda_device):
@@ -180,6 +360,8 @@ def test_width_limit_is_checked_when_the_model_is_built(cuda_device):
 
     assert T.max_features(T.MAX_K, torch.bfloat16) >= 1024
     assert T.max_features(T.MAX_K, torch.int8) >= 2048
+    # f32: no narrower than the CUDA-core kernel before TMA (1,043 at kb=128)
+    assert T.max_features(T.MAX_K, torch.float32) >= 1043
     T.check_features(1024, torch.bfloat16)
     wide = T.max_features(T.MAX_K, torch.bfloat16) + 1
     for mode in ("exact", "quantized"):

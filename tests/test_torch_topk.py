@@ -205,8 +205,10 @@ def test_split_then_merge_equals_whole(b, n_items, k, sm_count):
     xs = _t(rng.normal(size=(b, 12)))
     y = _t(np.repeat(rng.normal(size=(-(-n_items // 3), 12)), 3, axis=0)[:n_items])
     kb = 1 << max(0, (k - 1).bit_length())
-    n_splits, split_len = T.plan_splits(b, n_items, sm_count)
-    assert split_len % T.TILE_ITEMS == 0
+    rows, tile = T.block_geometry(torch.float32)
+    n_splits, split_len = T.plan_splits(b, n_items, sm_count,
+                                        rows_per_block=rows, tile_items=tile)
+    assert split_len % tile == 0
     assert (n_splits - 1) * split_len < n_items <= n_splits * split_len
     pv, pi = T.topk_dot_partial(
         xs, y, kb=kb, n_splits=n_splits, split_len=split_len
@@ -248,17 +250,99 @@ def test_kernel_probe_still_finds_every_phase(tmp_path):
 @pytest.mark.parametrize("b", [1, 64, 512, 2047])
 @pytest.mark.parametrize("per_sm", [1, 2, 4])
 def test_split_plan_covers_the_catalog_in_one_wave(dtype, b, per_sm):
-    # the partial kernel's block (64 rows and 64-item tiles for bf16 and
-    # int8, 32 rows and 128-item tiles for f32) and the split plan over it:
+    # the partial kernel's block (64 rows and 64-item tiles, every type) and
+    # the split plan over it:
     # whole tiles, at least four a split, covering the catalog once, and no
     # more blocks than one wave of per_sm resident blocks on 132 SMs
     rows, tile = T.block_geometry(dtype)
-    if dtype == torch.float32:
-        assert (rows, tile) == (32, 128)
-    else:
-        assert (rows, tile) == (T.ROWS_PER_BLOCK, T.TILE_ITEMS) == (64, 64)
+    assert (rows, tile) == (T.ROWS_PER_BLOCK, T.TILE_ITEMS) == (64, 64)
     n_splits, split_len = T.plan_splits(b, 1_000_000, 132, per_sm, rows, tile)
     assert split_len % tile == 0 and split_len >= 4 * tile
     assert (n_splits - 1) * split_len < 1_000_000 <= n_splits * split_len
     row_blocks = -(-b // rows)
     assert row_blocks * n_splits <= max(per_sm * 132, row_blocks)
+
+
+def _stacked_lists(rng, s, b, length, pad_every=0):
+    """[S, B, length] sorted (value desc, index asc) lists with heavy ties
+    (values from 4 levels) and distinct indices across lists; with
+    ``pad_every``, every such list keeps only a few real entries and ends in
+    (-inf, -1) padding, as a split shorter than kb does."""
+    v = rng.integers(0, 4, size=(s, b, length)).astype(np.float32)
+    i = np.stack([rng.permutation(s * length).reshape(s, length)
+                  for _ in range(b)], axis=1).astype(np.int32)
+    order = np.lexsort((i, -v), axis=-1)
+    v = np.take_along_axis(v, order, -1)
+    i = np.take_along_axis(i, order, -1)
+    if pad_every:
+        for j in range(0, s, pad_every):
+            keep = j % length
+            v[j, :, keep:] = -np.inf
+            i[j, :, keep:] = -1
+    return v, i
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 66, 521])
+@pytest.mark.parametrize("k", [1, 10, 32, 128])
+def test_merge_reference_matches_jax_merge_tree(s, k):
+    # the merge kernel's plain version against the JAX package's merge tree
+    # (pairwise _merge_top halvings over the stacked lists)
+    from oryx_tpu.ops.shard_topk import _merge_stacked_jit
+
+    rng = np.random.default_rng(1000 * s + k)
+    kb = 1 << max(0, (k - 1).bit_length())
+    v, i = _stacked_lists(rng, s, 3, kb, pad_every=3)
+    mv, mi = T.topk_merge_reference(_t(v), torch.from_numpy(i), k=k)
+    v_j, i_j = _merge_stacked_jit(jnp.asarray(v), jnp.asarray(i), k=k)
+    assert np.array_equal(mv.numpy(), np.asarray(v_j))
+    assert np.array_equal(mi.numpy(), np.asarray(i_j))
+
+
+def test_f32_partial_reference_matches_jax_at_f250():
+    # per split, the f32 partial's plain version against the JAX package's
+    # reference for the kernel (topk_dot_batch_xla, the f32 product at
+    # Precision.HIGHEST and lax.top_k) over that split's items, indices
+    # rebased; the last split is shorter than kb and padded with (-inf, -1)
+    from oryx_tpu.ops.als import topk_dot_batch_xla
+
+    rng = np.random.default_rng(250)
+    xs = rng.normal(size=(5, 250)).astype(np.float32)
+    y = rng.normal(size=(520, 250)).astype(np.float32)
+    kb, split_len = 16, 256
+    pv, pi = T.topk_dot_partial_reference(_t(xs), _t(y), kb=kb, n_splits=3,
+                                          split_len=split_len)
+    assert pv.shape == (3, 5, kb)
+    for s in range(3):
+        lo, hi = s * split_len, min(520, (s + 1) * split_len)
+        n = min(kb, hi - lo)
+        v_x, i_x = topk_dot_batch_xla(jnp.asarray(xs), jnp.asarray(y[lo:hi]), k=n)
+        np.testing.assert_allclose(pv[s, :, :n].numpy(), np.asarray(v_x),
+                                   rtol=1e-5, atol=1e-4)
+        assert np.array_equal(pi[s, :, :n].numpy(), np.asarray(i_x) + lo)
+        assert np.all(np.isneginf(pv[s, :, n:].numpy()))
+        assert np.all(pi[s, :, n:].numpy() == -1)
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """f32 values rounded to TF32's 10-bit mantissa (to nearest)."""
+    bits = a.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("feats", [1, 16, 50, 250, 600])
+def test_f32_tolerance_holds_f32_and_rejects_tf32(feats):
+    # the plain f32 version and the JAX reference (Precision.HIGHEST) stay
+    # within f32_tolerance of the float64 scores; the same top-k computed
+    # from TF32-rounded inputs does not
+    rng = np.random.default_rng(feats)
+    xs = rng.normal(size=(16, feats)).astype(np.float32)
+    y = rng.normal(size=(3000, feats)).astype(np.float32)
+    exact = xs.astype(np.float64) @ y.astype(np.float64).T
+    tol = T.f32_tolerance(feats)
+    v, i = T.topk_dot_batch_reference(_t(xs), _t(y), k=32)
+    rows = np.arange(16)[:, None]
+    assert np.abs(v.numpy() - exact[rows, i.numpy()]).max() <= tol
+    v_x, i_x = topk_dot_batch_xla(jnp.asarray(xs), jnp.asarray(y), k=32)
+    assert np.abs(np.asarray(v_x) - exact[rows, np.asarray(i_x)]).max() <= tol
+    v_t, i_t = T.topk_dot_batch_reference(_t(_tf32(xs)), _t(_tf32(y)), k=32)
+    assert np.abs(v_t.numpy() - exact[rows, i_t.numpy()]).max() > tol
