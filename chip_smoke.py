@@ -27,7 +27,21 @@ Phases, each printing JSON lines:
    item views must be pitched (ops/transfer.py). After the timed burst of
    score-mode exact, one more burst of the same requests, untimed, runs
    under torch.profiler; its device time by kernel and the share of the
-   burst's wall time the card was busy go into the serving line.
+   burst's wall time the card was busy go into the serving line;
+4. http (the main path as users reach it): in each score mode the port's
+   ServingLayer starts from config (mem:// topics created first, the
+   default async frontend on an ephemeral port, the classes and resources
+   of apps/spi.py's "als" overlay), its update listener loads the same
+   artifact from a MODEL-REF published on the update topic, and once GET
+   /ready answers 200 a load generator in separate processes (HTTP/1.1
+   keep-alive connections, CLIENT_PROCS x CLIENT_CONNS) sends 2,048 GET
+   /recommend/u{j}?howMany=10 for the in-process phase's users. Every
+   answer must be 200; recall@10 is held against the same float64
+   ranking; kernel launches must equal the batcher's dispatches. In
+   score-mode exact one more burst, untimed, runs with the card traced by
+   torch.profiler (device time, busy share). Then POST
+   /pref must reach the input topic, and an UP row on the update topic
+   planting a new best item must come back from /recommend over HTTP.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -48,6 +62,7 @@ SEED = 20240611
 N_ITEMS, N_USERS, FEATURES = 1_000_000, 100_000, 50
 N_REQUESTS, HOW_MANY, KNOWN_PER_USER = 2048, 10, 5
 N_UPDATES = 100
+CLIENT_PROCS, CLIENT_CONNS = 4, 16  # the http phase's load generator
 MIN_RECALL = {"exact": 0.99, "quantized": 0.95}  # ml/quality.py MIN_SCORE_MODE_RECALL
 FLOAT_TOL = 1e-3  # atol and rtol: bf16 products summed in another order
 
@@ -581,6 +596,228 @@ def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         mgr.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the serving path over HTTP
+# ---------------------------------------------------------------------------
+
+# One load-generator process: argv = port, connections; stdin = a count n,
+# n lines "index path", then (once it has printed "ready", its connections
+# open) a line "go". Prints one JSON line per request: [index, status,
+# seconds sent, seconds done, ids] (time.time(), comparable across
+# processes on one host).
+CLIENT = r"""
+import http.client, json, sys, threading, time
+port, conns = int(sys.argv[1]), int(sys.argv[2])
+n = int(sys.stdin.readline())
+paths = [sys.stdin.readline().split(" ", 1) for _ in range(n)]
+out = [None] * len(paths)
+clients = [http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+           for _ in range(conns)]
+for c in clients:
+    c.connect()
+gate = threading.Event()
+
+def run(w):
+    c = clients[w]
+    for n in range(w, len(paths), conns):
+        j, path = paths[n][0], paths[n][1].strip()
+        t0 = time.time()
+        c.request("GET", path, headers={"Accept": "application/json"})
+        r = c.getresponse()
+        body = r.read()
+        t1 = time.time()
+        ids = [p[0] for p in json.loads(body)] if r.status == 200 else []
+        out[n] = [int(j), r.status, t0, t1, ids]
+
+threads = [threading.Thread(target=run, args=(w,)) for w in range(conns)]
+print("ready", flush=True)
+sys.stdin.readline()  # "go"
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+for row in out:
+    print(json.dumps(row))
+"""
+
+
+def http_burst(port: int, paths: list[str]) -> list:
+    """Send paths over CLIENT_PROCS load-generator processes at once; the
+    rows of every process, in any order."""
+    procs = []
+    try:
+        for c in range(CLIENT_PROCS):
+            mine = [f"{j} {paths[j]}\n"
+                    for j in range(c, len(paths), CLIENT_PROCS)]
+            pr = subprocess.Popen(
+                [sys.executable, "-c", CLIENT, str(port), str(CLIENT_CONNS)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            pr.stdin.write(f"{len(mine)}\n" + "".join(mine))
+            pr.stdin.flush()
+            procs.append(pr)
+        for pr in procs:  # every connection open before any request
+            check(pr.stdout.readline().strip() == "ready",
+                  "load generator did not start")
+        for pr in procs:
+            pr.stdin.write("go\n")
+            pr.stdin.flush()
+        rows = []
+        for pr in procs:
+            out, _ = pr.communicate(timeout=600)
+            check(pr.returncode == 0, f"load generator exited {pr.returncode}")
+            rows.extend(json.loads(line) for line in out.splitlines())
+        return rows
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+
+
+def http_get(port: int, path: str, method: str = "GET", body=None):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request(method, path, body=body,
+                  headers={"Accept": "application/json"})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
+    """Phase 4 in one score mode: ServingLayer from config, MODEL-REF over
+    the bus, /ready, a burst of /recommend from other processes, /pref to
+    the input topic, an UP row served over HTTP."""
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import ConsumeDataIterator, TopicProducer
+    from oryx_tpu_torch.bus import get_broker, topic_admin
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    broker = f"mem://chip-smoke-{mode}"
+    overlay = dict(app_overlay("als"))
+    overlay.update({
+        "oryx.update-topic.broker": broker,
+        "oryx.input-topic.broker": broker,
+        "oryx.serving.api.port": 0,
+        "oryx.serving.api.score-mode": mode,
+    })
+    config = load_config(overlay=overlay)
+    topics = {w: config.get_string(f"oryx.{w}-topic.message.topic")
+              for w in ("input", "update")}
+    for w, topic in topics.items():  # as `setup` would, before serving
+        topic_admin.maybe_create(broker, topic)
+    t0 = time.monotonic()
+    layer = ServingLayer(config)  # loads the model manager by name
+    layer.start()
+    try:
+        start_s = time.monotonic() - t0
+        port = layer.port
+        update = TopicProducer(get_broker(broker), topics["update"])
+        t0 = time.monotonic()
+        update.send("MODEL-REF", path)
+        status = None
+        while time.monotonic() - t0 < 600:
+            status, _ = http_get(port, "/ready")
+            if status == 200:
+                break
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        check(status == 200, f"/ready answered {status} after {ready_s} s")
+        y_dev = layer.model_manager.get_model()._device_view[0]
+        check(y_dev.device.type == "cuda", "served view is not on the card")
+
+        batcher = TopKBatcher.shared()
+        paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in users]
+        d0, c0 = batcher.dispatches, batcher.coalesced
+        T.reset_launches()  # the main path's window opens
+        rows = http_burst(port, paths)
+        torch.cuda.synchronize()
+        launches = dict(T.LAUNCHES)  # ... and closes
+        by_type = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+        dispatches = batcher.dispatches - d0
+        coalesced = batcher.coalesced - c0
+        check(len(rows) == len(paths), f"{len(rows)} answers to {len(paths)}")
+        non_200 = sum(1 for r in rows if r[1] != 200)
+        check(non_200 == 0, f"{non_200} non-200 answers")
+        check(coalesced == len(paths),
+              f"{coalesced} requests reached the batcher for {len(paths)}")
+        check(0 < dispatches < len(paths),
+              f"{dispatches} dispatches for {len(paths)} requests")
+        check(launches["topk_dot_partial"] == dispatches
+              and launches["topk_merge"] == dispatches,
+              f"launches {launches} != dispatches {dispatches}")
+        known = model_data["known_idx"]
+        hits = 0
+        for j, _status, _t0, _t1, ids in rows:
+            check(len(ids) == HOW_MANY, "short answer")
+            check(not set(ids) & {f"i{int(r)}" for r in known[users[j]]},
+                  "a known item was served")
+            hits += len(set(ids) & {f"i{int(r)}" for r in exact_rows[j]})
+        recall = hits / (HOW_MANY * len(rows))
+        check(recall >= MIN_RECALL[mode],
+              f"http {mode} recall@10 {recall} < {MIN_RECALL[mode]}")
+        wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+        lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+        _s, healthz = http_get(port, "/healthz")
+        traced = None
+        if mode == "exact":
+            # the same burst again, untimed, with the card traced (device
+            # activity only): how busy the card is at the HTTP edge
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                rows_p = http_burst(port, paths)
+                torch.cuda.synchronize()
+            traced = device_profile(
+                prof, max(r[3] for r in rows_p) - min(r[2] for r in rows_p))
+
+        # a preference write reaches the input topic
+        user = f"u{int(users[0])}"
+        status, _ = http_get(port, f"/pref/{user}/i1", "POST", b"2.5")
+        check(status == 200, f"POST /pref answered {status}")
+        with ConsumeDataIterator(get_broker(broker), topics["input"],
+                                 start="earliest") as it:
+            lines = [km.message for km in it.poll_available()]
+        check(f"{user},i1,2.5" in lines, f"input topic holds {lines}")
+
+        # an UP row planting a new best item is served over HTTP
+        star = 10.0 * model_data["x"][int(users[0])]
+        t0 = time.monotonic()
+        update.send("UP", json.dumps(["Y", "i-http-new",
+                                      [float(v) for v in star]]))
+        first = None
+        while time.monotonic() - t0 < 60:
+            status, body = http_get(port, f"/recommend/{user}?howMany=3")
+            first = json.loads(body)[0][0] if status == 200 else None
+            if first == "i-http-new":
+                break
+            time.sleep(0.01)
+        up_s = time.monotonic() - t0
+        check(first == "i-http-new", f"planted item not served: {first}")
+        return {
+            "phase": "http", "mode": mode, "frontend": "async",
+            "loops": layer.app.loop_count, "start_s": start_s,
+            "ready_s": ready_s, "requests": len(paths),
+            "client_processes": CLIENT_PROCS,
+            "connections": CLIENT_PROCS * CLIENT_CONNS,
+            "non_200": non_200, "qps": len(paths) / wall, "wall_s": wall,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "recall_at_10": recall, "dispatches": dispatches,
+            "mean_batch": coalesced / dispatches, "launches": launches,
+            "partial_launches_by_type": by_type,
+            "latency_budget": json.loads(healthz).get("latency_budget"),
+            "profile": traced,
+            "pref_to_input_topic": True, "up_served_after_s": up_s,
+        }
+    finally:
+        layer.close()
+
+
 def main() -> int:
     import torch
 
@@ -622,12 +859,19 @@ def main() -> int:
             serving[mode] = serve_mode(torch, np, T, mode, path, model_data,
                                        users, exact_rows)
             emit(serving[mode])
+        emit({"phase": "serving-done", "seconds": time.monotonic() - t0})
+        t0 = time.monotonic()
+        # the shared batcher must still be open: a closed one stays closed
+        for mode in ("exact", "quantized"):
+            served = http_mode(torch, np, T, mode, path, model_data, users,
+                               exact_rows)
+            emit(served)
+            serving["http-" + mode] = served
     TopKBatcher.shared().close()
-    emit({"phase": "serving-done", "seconds": time.monotonic() - t0})
+    emit({"phase": "http-done", "seconds": time.monotonic() - t0})
 
     launches = {
-        name: serving["exact"]["launches"][name]
-        + serving["quantized"]["launches"][name]
+        name: sum(run["launches"][name] for run in serving.values())
         for name in T.LAUNCHES
     }
     check(all(v > 0 for v in launches.values()),
@@ -661,8 +905,8 @@ def main() -> int:
                                   plain_ms="partial_plain",
                                   library_ms="library")}
                 for t, n_launch in (
-                    (t, serving["exact"]["partial_launches_by_type"][t]
-                     + serving["quantized"]["partial_launches_by_type"][t])
+                    (t, sum(run["partial_launches_by_type"][t]
+                            for run in serving.values()))
                     for t in ("bfloat16", "int8", "float32")
                 )
             ],

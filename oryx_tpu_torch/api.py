@@ -6,7 +6,7 @@ port's copy of the serving half of oryx_tpu/api.py).
     readiness (reference .../api/serving/ServingModelManager.java,
     ServingModel.java)
 
-Data items are KeyMessage(key, message) pairs.
+Data items are KeyMessage(key, message) pairs (bus/api.py).
 """
 
 from __future__ import annotations
@@ -14,27 +14,55 @@ from __future__ import annotations
 import logging
 import time
 from abc import ABC, abstractmethod
-from typing import Iterator, NamedTuple
+from typing import Iterator
 
+from oryx_tpu_torch.bus.api import KeyMessage
 from oryx_tpu_torch.common.config import Config
 
 _log = logging.getLogger(__name__)
 
 
-class KeyMessage(NamedTuple):
-    key: str | None
-    message: str
+def _note_model_freshness(key: str | None, loaded: bool) -> None:
+    """Feed the model-freshness tracker (common/freshness.py) after a
+    MODEL/MODEL-REF dispatch — no-op for other keys, and NEVER lets its
+    own failure escape into the update-listener thread."""
+    if key not in ("MODEL", "MODEL-REF"):
+        return
+    try:
+        from oryx_tpu_torch.common.freshness import model_freshness
+
+        if loaded:
+            model_freshness().note_loaded()
+        else:
+            # the model did NOT load: its stamp must not claim an earlier
+            # successful load
+            model_freshness().note_load_failed()
+    except Exception:  # pragma: no cover - defensive
+        _log.exception("model freshness hook failed")
 
 
 def _dispatch_update(handler, km: KeyMessage) -> None:
     """Per-message dispatch with error isolation: a poison message must not
     kill the listener (it would replay the same message forever and freeze
     the model). MODEL/MODEL-REF I/O failures may be transient, so OSError
-    retries briefly; parse/validation errors are logged and skipped."""
+    retries briefly; parse/validation errors are logged and skipped.
+
+    ``TRACE`` publish stamps (common/freshness.py) feed the freshness
+    metrics and never reach the handler. The JAX package's MODEL-CHUNK
+    relay and model gate are not ported yet (ROADMAP queue 1)."""
+    if km.key == "TRACE":
+        from oryx_tpu_torch.common.freshness import model_freshness
+
+        try:
+            model_freshness().note_stamp(km.message)
+        except Exception:
+            _log.exception("ignoring bad TRACE publish stamp")
+        return
     retries = 3 if km.key in ("MODEL", "MODEL-REF") else 0
     for attempt in range(retries + 1):
         try:
             handler(km.key, km.message)
+            _note_model_freshness(km.key, loaded=True)
             return
         except OSError:
             if attempt < retries:
@@ -47,7 +75,8 @@ def _dispatch_update(handler, km: KeyMessage) -> None:
                 _log.exception("giving up on update message (key=%r)", km.key)
         except Exception:
             _log.exception("ignoring bad update message (key=%r)", km.key)
-            return
+            break
+    _note_model_freshness(km.key, loaded=False)
 
 
 class ServingModel(ABC):

@@ -14,7 +14,6 @@ sampling, sharded and chunked views, tracing and sync metrics.
 
 from __future__ import annotations
 
-import importlib
 import logging
 import threading
 import time
@@ -27,6 +26,7 @@ import torch
 from oryx_tpu_torch.api import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.apps.als.common import ALSConfig
 from oryx_tpu_torch.apps.als.state import ALSState, apply_update_message
+from oryx_tpu_torch.common.classutil import load_instance_of
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.device import resolve_device
 from oryx_tpu_torch.ops.als import compute_updated_xu
@@ -208,7 +208,18 @@ class ALSServingModel(ServingModel):
         return None if view is None else view[2]
 
     def fraction_loaded(self) -> float:
+        """The announced model's loaded fraction, and 0 until the scoring
+        view exists on the model's device: the manager builds it on the
+        update listener's thread, so /ready never answers 200 for a model
+        whose first request would have to build it."""
+        if self._device_view is None:
+            return 0.0
         return self.state.fraction_loaded()
+
+    def build_views(self) -> None:
+        """Build the device scoring view now instead of on the first
+        query."""
+        self._y_view_full()
 
     # -- device scoring view ----------------------------------------------
 
@@ -638,6 +649,11 @@ class ALSServingModelManager(AbstractServingModelManager):
                 "oryx.serving.api.score-mode must be one of "
                 f"{SCORE_MODES}, got {self.score_mode!r}"
             )
+        # the load fraction at which the listener builds a model's device
+        # view (the readiness gate, ServingApp.get_serving_model)
+        self.min_fraction = config.get_float(
+            "oryx.serving.min-model-load-fraction", 0.8
+        )
         self.model: ALSServingModel | None = None
         self._rescorer_provider = _load_rescorer_provider(config)
         configure_post_pool(config.get_int("oryx.serving.api.post-workers", 8))
@@ -649,17 +665,29 @@ class ALSServingModelManager(AbstractServingModelManager):
         return self._rescorer_provider
 
     def consume_key_message(self, key: str | None, message: str) -> None:
-        prev = self.model.state if self.model is not None else None
+        """Apply one update-topic message. A new model's device view is
+        built here, on the listener's thread, once enough of it has loaded
+        to serve, and before it replaces the served model: requests keep
+        the old model meanwhile, and readiness waits for the view."""
+        old = self.model
+        prev = old.state if old is not None else None
         state = apply_update_message(prev, key, message, with_known_items=True)
-        if state is not None and state is not prev:
-            old = self.model
-            self.model = ALSServingModel(
+        if state is None:
+            return
+        model = old
+        if state is not prev:
+            model = ALSServingModel(
                 state,
                 approx_recall=self.als.approx_recall,
                 sync=self.sync,
                 score_mode=self.score_mode,
                 device=self.device,
             )
+        if (model._device_view is None
+                and state.fraction_loaded() >= self.min_fraction):
+            model.build_views()
+        if model is not old:
+            self.model = model
             if old is not None:
                 old.close()  # stop the replaced model's resync thread
 
@@ -670,10 +698,8 @@ class ALSServingModelManager(AbstractServingModelManager):
 
 def _load_rescorer_provider(config: Config):
     """Optional result-rescoring plugin, config-named like the reference's
-    oryx.als.rescorer-provider-class (ALSServingModelManager.java:147-180):
-    "package.module.ClassName", instantiated with no arguments."""
+    oryx.als.rescorer-provider-class (ALSServingModelManager.java:147-180)."""
     name = config.get_string("oryx.als.rescorer-provider-class", None)
     if not name:
         return None
-    module, _, cls = name.rpartition(".")
-    return getattr(importlib.import_module(module), cls)()
+    return load_instance_of(name)

@@ -3,7 +3,16 @@ slice needs)."""
 
 from __future__ import annotations
 
+import shutil
 from pathlib import Path
+
+
+def delete_recursively(path: str | Path) -> None:
+    p = Path(path)
+    if p.is_dir():
+        shutil.rmtree(p, ignore_errors=True)
+    elif p.exists():
+        p.unlink(missing_ok=True)
 
 
 def mkdirs(path: str | Path) -> Path:

@@ -23,19 +23,25 @@ So:
   Retry-After) instead of queueing without bound.
 
 A group whose dispatch fails gets the exception on every one of its
-futures: there is no host fallback. The wedge watchdog, its host drain and
-the dispatch telemetry of the JAX package wait for a later slice.
+futures: there is no host fallback. A request submitted from an HTTP
+handler carries its phase ledger (common/perfattr.py), stamped with
+queue_wait (submit to its group's launch) and device (launch to results on
+the host). The wedge watchdog, its host drain and the rest of the JAX
+package's dispatch telemetry wait for a later slice.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from concurrent.futures import Future
 
 import numpy as np
 import torch
 
+from oryx_tpu_torch.common.metrics import get_registry
+from oryx_tpu_torch.common.perfattr import current_ledger
 from oryx_tpu_torch.ops.als import PALLAS_TOPK_MAX_K, topk_dot_batch
 from oryx_tpu_torch.serving.app import ShedLoad
 from oryx_tpu_torch.serving.futureutil import try_set_exception, try_set_result
@@ -68,7 +74,7 @@ def k_bucket(k: int) -> int:
 
 
 class _Pending:
-    __slots__ = ("vec", "k", "y", "future", "recall")
+    __slots__ = ("vec", "k", "y", "future", "recall", "t_enq", "ledger")
 
     def __init__(self, vec, k, y, future, recall=1.0):
         self.vec = vec
@@ -76,6 +82,16 @@ class _Pending:
         self.y = y
         self.future = future
         self.recall = recall
+        self.t_enq = time.monotonic()
+        # the submitting request's phase ledger (thread-local, installed
+        # by ServingApp.dispatch_nowait; None off the request path)
+        self.ledger = current_ledger()
+        if self.ledger is not None:
+            # routing and the handler's pre-work since the last stamp
+            # (parse/auth) count as parse, so the budget tiles the request
+            tail = self.ledger.last_end()
+            if tail is not None and tail < self.t_enq:
+                self.ledger.add("parse", self.t_enq - tail, start=tail)
 
 
 class _Group:
@@ -83,15 +99,18 @@ class _Group:
     and the event recorded after their device-to-host copies. ``staged``
     keeps the pinned query buffer alive until its copy has run."""
 
-    __slots__ = ("requests", "kb", "vals", "idx", "event", "staged")
+    __slots__ = ("requests", "kb", "vals", "idx", "event", "staged",
+                 "t_launch")
 
-    def __init__(self, requests, kb, vals, idx, event=None, staged=None):
+    def __init__(self, requests, kb, vals, idx, event=None, staged=None,
+                 t_launch=0.0):
         self.requests = requests
         self.kb = kb
         self.vals = vals
         self.idx = idx
         self.event = event
         self.staged = staged
+        self.t_launch = t_launch
 
 
 class TopKBatcher:
@@ -125,6 +144,52 @@ class TopKBatcher:
         # achieved mean batch size
         self.dispatches = 0  # guarded-by: _lock (writes)
         self.coalesced = 0  # guarded-by: _lock (writes)
+        # analytic operations dispatched to the card (2·B·I·F per group)
+        self.flops_scored = 0.0  # guarded-by: _lock (writes)
+
+    def configure(self, config) -> None:
+        """Adopt the serving config's shed knobs (ServingLayer.start);
+        0 / negative max-queue disables shedding."""
+        self.max_queue = config.get_int(
+            "oryx.serving.api.shed.max-queue", MAX_QUEUE
+        )
+        self.retry_after_sec = config.get_int(
+            "oryx.serving.api.shed.retry-after-sec", 1
+        )
+
+    def register_gauges(self) -> None:
+        """Expose the batcher's counters as callback gauges on the global
+        metrics registry (the serving resources call this once at startup;
+        scrapes then read live values with no per-scrape mutation). The
+        JAX package's host-fallback, failover, device-down and peak-rate
+        gauges have no source here: the port has no host path, and the
+        watchdog and the peak table are not ported yet."""
+        reg = get_registry()
+        for name, help_text, fn in (
+            ("oryx_topk_dispatches",
+             "device top-k dispatches issued by the micro-batcher",
+             lambda: float(self.dispatches)),
+            ("oryx_topk_coalesced",
+             "requests coalesced into device dispatches",
+             lambda: float(self.coalesced)),
+            ("oryx_topk_mean_batch",
+             "achieved mean coalesced batch size (coalesced/dispatches "
+             "over the process lifetime; >1 means requests are sharing "
+             "device dispatches)",
+             lambda: (
+                 self.coalesced / self.dispatches if self.dispatches else 0.0
+             )),
+            ("oryx_topk_queue_depth",
+             "requests waiting for a device dispatch right now; at "
+             "oryx.serving.api.shed.max-queue new submits shed with 503",
+             # len() is one GIL-atomic read and the gauge is advisory
+             lambda: float(len(self._queue))),
+            ("oryx_topk_flops_total",
+             "analytic operations dispatched to device top-k scoring "
+             "(2 x rows x items x features per dispatch)",
+             lambda: float(self.flops_scored)),
+        ):
+            reg.gauge(name, help_text).set_function(fn)
 
     # -- public API --------------------------------------------------------
 
@@ -144,6 +209,9 @@ class TopKBatcher:
             if self._closed:
                 raise RuntimeError("batcher is closed")
             if self.max_queue > 0 and len(self._queue) >= self.max_queue:
+                # saturation: refuse honestly instead of queueing without
+                # bound; renders as 503 + Retry-After at the app boundary
+                get_registry().counter("oryx_serving_shed_total").inc()
                 raise ShedLoad(
                     f"top-k queue saturated ({len(self._queue)} deep)",
                     retry_after_sec=self.retry_after_sec,
@@ -198,6 +266,10 @@ class TopKBatcher:
         with self._lock:
             self.dispatches += len(groups)
             self.coalesced += len(batch)
+            self.flops_scored += sum(
+                2.0 * len(g) * g[0].y.shape[0] * g[0].y.shape[1]
+                for g in groups.values()
+            )
         launched = []
         for (_, kb, recall), group in groups.items():
             # failures stay inside their group: a bad shape against one
@@ -215,6 +287,10 @@ class TopKBatcher:
         y = group[0].y
         dev = y.device
         on_cuda = dev.type == "cuda"
+        t_launch = time.monotonic()
+        for p in group:
+            if p.ledger is not None:
+                p.ledger.add("queue_wait", t_launch - p.t_enq, start=p.t_enq)
         staged = torch.empty(
             (len(group), y.shape[1]), dtype=torch.float32, pin_memory=on_cuda
         )
@@ -224,14 +300,14 @@ class TopKBatcher:
         xs = staged.to(dev, non_blocking=True) if on_cuda else staged
         vals, idx = topk_dot_batch(xs, y, k=kb, recall=recall)
         if not on_cuda:
-            return _Group(group, kb, vals, idx)
+            return _Group(group, kb, vals, idx, t_launch=t_launch)
         h_vals = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
         h_idx = torch.empty(idx.shape, dtype=idx.dtype, pin_memory=True)
         h_vals.copy_(vals, non_blocking=True)
         h_idx.copy_(idx, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return _Group(group, kb, h_vals, h_idx, event, staged)
+        return _Group(group, kb, h_vals, h_idx, event, staged, t_launch)
 
     def _resolve(self, g: _Group) -> None:
         try:
@@ -239,7 +315,11 @@ class TopKBatcher:
                 g.event.synchronize()
             vals = g.vals.numpy()
             idx = g.idx.numpy()
+            t_done = time.monotonic()
             for i, p in enumerate(g.requests):
+                if p.ledger is not None:
+                    p.ledger.add("device", t_done - g.t_launch,
+                                 start=g.t_launch)
                 k_eff = min(p.k, g.kb)
                 try_set_result(
                     p.future, (vals[i, :k_eff].copy(), idx[i, :k_eff].copy())

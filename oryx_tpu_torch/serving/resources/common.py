@@ -1,0 +1,261 @@
+"""Resources every app shares: /ready, /healthz, /ingest, /metrics,
+/console, /debug/traces (the port's copy of
+oryx_tpu/serving/resources/common.py).
+
+Mirrors the reference's Ready.java:33-46 (GET/HEAD 200-or-503 on model
+load fraction) and Ingest.java (bulk lines -> input topic, gzip-aware via
+the server's request decoding), plus the observability endpoints the
+reference never had: Prometheus /metrics, a /healthz liveness probe
+(distinct from /ready readiness), and the /debug/traces span lens
+(common/tracing.py).
+
+Not registered until their planes are ported, so they answer 404:
+/control/model/approve and /control/model/rollback (the model gate,
+ROADMAP queue 1 item 8), /debug/flight (the flight recorder, item 4) and
+/debug/profile (perfstats, item 4).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+from oryx_tpu_torch.common.metrics import get_registry
+from oryx_tpu_torch.common.tracing import chrome_trace, get_tracer, span_forest
+from oryx_tpu_torch.serving.app import OryxServingException, RawResponse, Request, ServingApp
+
+
+def _ingest_text(req: Request) -> str:
+    """Body text for /ingest: plain text (frontends already undo
+    Content-Encoding: gzip), or every file part of a multipart/form-data
+    upload — parity with the reference's AbstractOryxResource
+    maybeBuffer/maybeDecompress upload handling, which accepts browser
+    form posts of (optionally gzipped) data files."""
+    ctype = req.headers.get("content-type", "")
+    if not ctype.lower().startswith("multipart/form-data"):
+        return req.body_text()
+    import gzip
+    from email import policy
+    from email.parser import BytesParser
+
+    # reuse the stdlib MIME parser by re-wrapping the body with its header
+    raw = (f"Content-Type: {ctype}\r\n\r\n").encode("latin-1") + req.body
+    msg = BytesParser(policy=policy.default).parsebytes(raw)
+    parts = []
+    for part in msg.iter_parts():
+        name = (part.get_filename() or "").lower()
+        if not name:
+            # ordinary form fields (hidden tokens, submit values) are not
+            # data: only FILE parts ingest, like the reference's FileItem
+            # handling
+            continue
+        payload = part.get_payload(decode=True)
+        if payload is None:
+            continue
+        if name.endswith(".gz") or payload[:2] == b"\x1f\x8b":
+            import zlib
+
+            try:
+                payload = gzip.decompress(payload)
+            except (OSError, EOFError, zlib.error):
+                # OSError: bad magic; EOFError: truncated; zlib.error:
+                # corrupt deflate stream
+                raise OryxServingException(400, f"bad gzip upload: {name}")
+        parts.append(payload.decode("utf-8", errors="replace"))
+    if not parts:
+        raise OryxServingException(400, "no file parts in multipart upload")
+    return "\n".join(parts)
+
+
+def send_input_lines(
+    app: ServingApp, text: str, what: str = "data points", required: bool = True
+) -> int:
+    """Bulk lines -> input topic; 400 when nothing usable was given (unless
+    required=False — the wordcount /add treats an empty flush as a no-op).
+    The one implementation behind /ingest, /add, and /train."""
+    n = 0
+    for line in text.splitlines():
+        line = line.strip()
+        if line:
+            app.send_input(line)
+            n += 1
+    if n == 0 and required:
+        raise OryxServingException(400, f"no {what} given")
+    return n
+
+
+def register(app: ServingApp) -> None:
+    @app.route("GET", "/ready", nonblocking=True)
+    def ready(a: ServingApp, req: Request):
+        a.get_serving_model()  # raises 503 if not ready
+        return 200, {"ready": True}
+
+    @app.route("HEAD", "/ready", nonblocking=True)
+    def ready_head(a: ServingApp, req: Request):
+        a.get_serving_model()
+        return 200, None
+
+    @app.route("GET", "/healthz", nonblocking=True)
+    def healthz(a: ServingApp, req: Request):
+        """Health probe reporting uptime, event-loop fan-out, and the
+        generation id of the model being served (from the update topic's
+        publish stamps). GET doubles as the DEGRADED-readiness surface:
+        503 + reasons when the served model is past its staleness bound
+        (oryx.serving.api.max-staleness-sec) — a condition a log line
+        can't route to a load balancer.
+        HEAD stays pure liveness (200 whenever the frontend dispatches),
+        so probes choose their semantics by method.
+
+        Reports the fields whose sources are ported; the JAX package's
+        shards, mfu, occupancy, quality, slo_errors, slo_burn and
+        model_gate fields wait for theirs (ROADMAP queue 1)."""
+        from oryx_tpu_torch.common.freshness import model_freshness
+
+        degraded = a.degraded_reasons()
+        body = {
+            "status": "degraded" if degraded else "up",
+            "degraded": degraded,
+            "uptime_seconds": round(time.monotonic() - a.started_at, 3),
+            "loops": a.loop_count,
+            "model_generation": model_freshness().generation,
+        }
+        # fleet surface: name this process (the front's ejection log and
+        # oryx_fleet_replica_* labels come straight from here) and carry
+        # the per-replica freshness/perf numbers the front aggregates
+        if a.replica_id:
+            body["replica"] = a.replica_id
+        if a.listen_port:
+            body["port"] = a.listen_port
+        age = a.staleness_age()
+        if age is not None:
+            body["staleness_seconds"] = round(age, 3)
+        if a.update_lag_fn is not None:
+            try:
+                body["update_lag"] = int(a.update_lag_fn())
+            except Exception:  # noqa: BLE001 - a probe never 500s on lag
+                pass
+        try:
+            from oryx_tpu_torch.common.perfattr import get_perfattr
+
+            # live latency budget: per-phase p50/p99/share over the
+            # rolling window
+            body["latency_budget"] = get_perfattr().healthz_section()
+        except Exception:  # noqa: BLE001 - a probe never 500s on perfattr
+            pass
+        return (503 if degraded else 200), body
+
+    @app.route("HEAD", "/healthz", nonblocking=True)
+    def healthz_head(a: ServingApp, req: Request):
+        return 200, None
+
+    @app.route("POST", "/ingest")
+    def ingest(a: ServingApp, req: Request):
+        n = send_input_lines(a, _ingest_text(req), "ingest body")
+        return 200, {"ingested": n}
+
+    # NOT nonblocking: serializing a full ring (thousands of spans) on an
+    # event loop would stall that loop's other connections
+    @app.route("GET", "/debug/traces")
+    def debug_traces(a: ServingApp, req: Request):
+        """Recent finished spans from the process ring buffer as a span
+        forest (default) or Chrome trace-event JSON (?format=chrome —
+        opens directly in Perfetto).
+        ?limit=N keeps only the newest N spans. Empty until
+        oryx.monitoring.tracing.enabled = true."""
+        tr = get_tracer()
+        spans = tr.snapshot()
+        try:
+            limit = int(req.q1("limit", "0") or 0)
+        except ValueError:
+            raise OryxServingException(400, "bad limit")
+        if limit > 0:
+            spans = spans[-limit:]
+        if req.q1("format") == "chrome":
+            body = json.dumps(chrome_trace(spans), default=str)
+        else:
+            body = json.dumps(
+                {
+                    "enabled": tr.enabled,
+                    "capacity": tr.capacity,
+                    "spans": len(spans),
+                    "traces": span_forest(spans),
+                },
+                default=str,
+            )
+        return RawResponse(200, body.encode("utf-8"), "application/json")
+
+    if app.config.get_bool("oryx.monitoring.metrics", True):
+
+        from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+        # live callback gauges: scrapes read the batcher's counters
+        # without per-scrape mutation
+        TopKBatcher.shared().register_gauges()
+
+        @app.route("GET", "/metrics")
+        def metrics(a: ServingApp, req: Request):
+            """Prometheus text exposition; a scraper that negotiates
+            `Accept: application/openmetrics-text` gets the OpenMetrics
+            dialect instead, which is the ONLY format exemplars
+            (metric→trace joins, docs/observability.md) may legally ride
+            — emitting them into classic text would fail legacy
+            parsers on the whole scrape."""
+            wants_om = "application/openmetrics-text" in req.headers.get(
+                "accept", ""
+            )
+            text = get_registry().render_prometheus(openmetrics=wants_om)
+            ctype = (
+                "application/openmetrics-text; version=1.0.0; charset=utf-8"
+                if wants_om else "text/plain; version=0.0.4"
+            )
+            return RawResponse(200, text.encode("utf-8"), ctype)
+
+    @app.route("GET", "/console")
+    def console(a: ServingApp, req: Request):
+        """Human status page (the reference serves an HTML console per app,
+        e.g. .../als/Console.java): model state, app-specific sections
+        registered via app.console_sections, and the route table."""
+        import html as _html
+
+        model = a.model_manager.get_model()
+        frac = model.fraction_loaded() if model is not None else 0.0
+        manager = _html.escape(type(a.model_manager).__name__)
+        ctx = a.context_path  # links must stay inside the mount
+
+        def table(pairs) -> str:
+            return "<table>" + "".join(
+                f"<tr><td>{_html.escape(str(k))}</td>"
+                f"<td>{_html.escape(str(v))}</td></tr>"
+                for k, v in pairs
+            ) + "</table>"
+
+        sections = []
+        for title, fn in a.console_sections:
+            try:
+                pairs = fn(a)
+            except OryxServingException:
+                pairs = [("status", "model not yet available")]
+            except Exception as e:  # noqa: BLE001 - console must render
+                pairs = [("error", f"{type(e).__name__}: {e}")]
+            sections.append(f"<h2>{_html.escape(title)}</h2>{table(pairs)}")
+
+        rows = "".join(
+            f"<tr><td>{_html.escape(r.method)}</td>"
+            f"<td><code>{_html.escape(r.pattern.pattern)}</code></td></tr>"
+            for r in sorted(a.routes, key=lambda r: (r.pattern.pattern, r.method))
+        )
+        html = (
+            "<!doctype html><html><head><title>Oryx Serving</title>"
+            "<style>body{font-family:sans-serif;margin:2em}table{border-collapse:"
+            "collapse}td,th{border:1px solid #ccc;padding:4px 8px}</style></head>"
+            f"<body><h1>Oryx serving console</h1>"
+            f"<p>Model manager: <b>{manager}</b></p>"
+            f"<p>Model loaded: <b>{frac:.0%}</b>"
+            f"{' (serving)' if frac >= a.min_fraction else ' (warming up)'}</p>"
+            f"<p><a href='{ctx}/metrics'>metrics</a> &middot; "
+            f"<a href='{ctx}/ready'>ready</a></p>"
+            f"{''.join(sections)}"
+            f"<h2>Endpoints</h2><table><tr><th>method</th><th>path</th></tr>"
+            f"{rows}</table></body></html>"
+        )
+        return RawResponse(200, html.encode("utf-8"), "text/html; charset=utf-8")

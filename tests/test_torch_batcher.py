@@ -122,3 +122,81 @@ def test_a_failed_group_fails_its_futures_only():
         assert len(f_good.result(timeout=30)[1]) == 4
     finally:
         b.close()
+
+
+def test_configure_adopts_the_shed_knobs_like_jax():
+    from oryx_tpu.common.config import load_config as jax_load_config
+    from oryx_tpu_torch.common.config import load_config
+
+    overlay = {"oryx.serving.api.shed.max-queue": 17,
+               "oryx.serving.api.shed.retry-after-sec": 4}
+    jb, pb = J.TopKBatcher(), P.TopKBatcher()
+    jb.configure(jax_load_config(overlay=overlay))
+    pb.configure(load_config(overlay=overlay))
+    assert (pb.max_queue, pb.retry_after_sec) == (17, 4)
+    assert (pb.max_queue, pb.retry_after_sec) == (jb.max_queue,
+                                                  jb.retry_after_sec)
+    pb.configure(load_config())
+    assert pb.max_queue == P.MAX_QUEUE
+
+
+def test_gauges_read_the_live_counters():
+    from oryx_tpu_torch.common.metrics import get_registry
+
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.standard_normal((40, 6)).astype(np.float32))
+    b = P.TopKBatcher()
+    try:
+        b.register_gauges()
+        for f in [b.submit_nowait(rng.standard_normal(6), 5, y)
+                  for _ in range(9)]:
+            f.result(timeout=30)
+        text = get_registry().render_prometheus()
+    finally:
+        b.close()
+    values = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                  if line.startswith("oryx_topk_"))
+    assert float(values["oryx_topk_coalesced"]) == 9
+    assert float(values["oryx_topk_dispatches"]) == b.dispatches
+    assert float(values["oryx_topk_mean_batch"]) == 9 / b.dispatches
+    assert float(values["oryx_topk_queue_depth"]) == 0
+    # 2 x rows x items x features over every dispatch
+    assert float(values["oryx_topk_flops_total"]) == 2.0 * 9 * 40 * 6
+    # the same series names as the JAX package's batcher exposes
+    jax_names = set(J.TopKBatcher.register_gauges.__code__.co_consts)
+    assert set(values) <= jax_names
+
+
+def test_requests_stamp_their_phase_ledger():
+    from oryx_tpu_torch.common.perfattr import PhaseLedger, swap_ledger
+
+    y = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((30, 4)).astype(np.float32))
+    ledger = PhaseLedger()
+    ledger.add("parse", 0.0, start=ledger.t0)
+    b = P.TopKBatcher()
+    prev = swap_ledger(ledger)
+    try:
+        fut = b.submit_nowait(np.ones(4, np.float32), 3, y)
+    finally:
+        swap_ledger(prev)
+    try:
+        fut.result(timeout=30)
+    finally:
+        b.close()
+    phases = [p for p, _start, _s in ledger.items()]
+    assert phases[-2:] == ["queue_wait", "device"]
+    assert all(s >= 0 for _p, _start, s in ledger.items())
+
+
+def test_a_shed_counts_on_the_serving_shed_counter(monkeypatch):
+    from oryx_tpu_torch.common.metrics import get_registry
+
+    counter = get_registry().counter("oryx_serving_shed_total")
+    before = counter.value()
+    b = P.TopKBatcher(max_queue=0)
+    b.max_queue = 1
+    b._queue.append(object())  # a full queue, no dispatcher running
+    with pytest.raises(ShedLoad):
+        b.submit_nowait(np.ones(4, np.float32), 3, torch.zeros((5, 4)))
+    assert counter.value() == before + 1

@@ -373,3 +373,96 @@ def test_width_limit_is_checked_when_the_model_is_built(cuda_device):
     with pytest.raises(ValueError, match="features"):
         T.topk_dot_partial(xs, y, kb=128, n_splits=1, split_len=320)
     assert T.LAUNCHES["topk_dot_partial"] == 0
+
+
+def test_serving_layer_on_the_card_answers_like_the_cpu(cuda_device, tmp_path):
+    """The port's ServingLayer built from config (its ALS manager resolves
+    the card), fed a MODEL-REF over mem:// topics, answers /recommend over
+    HTTP like the same layer on the CPU. Both re-rank candidates in exact
+    f32 on the host, so an id present in both answers at a slot carries the
+    same value; ids may differ only where the card's bf16 candidate
+    selection meets a near-tie (values within 1e-3, atol and rtol)."""
+    import http.client
+    import json
+    import time
+
+    from oryx_tpu_torch.apps.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import get_broker
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    rng = np.random.default_rng(11)
+    n_items, n_users, f = 5000, 64, 32
+    x = rng.standard_normal((n_users, f), dtype=np.float32)
+    y = rng.standard_normal((n_items, f), dtype=np.float32)
+    art = ModelArtifact(
+        "als", content={"knownItems": {f"u{j}": [f"i{j}"] for j in range(n_users)}},
+        tensors={"X": x, "Y": y})
+    art.set_extension("features", str(f))
+    art.set_extension("implicit", "true")
+    art.set_extension("XIDs", [f"u{j}" for j in range(n_users)])
+    art.set_extension("YIDs", [f"i{j}" for j in range(n_items)])
+    art.write(tmp_path / "model")
+
+    def get(port, path):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            c.request("GET", path, headers={"Accept": "application/json"})
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    layers = {}
+    for where in ("card", "cpu"):
+        bus = f"mem://cuda-serving-{where}"
+        broker = get_broker(bus)
+        for topic in ("OryxInput", "OryxUpdate"):
+            broker.create_topic(topic, 1)
+        overlay = dict(app_overlay("als"))
+        overlay.update({"oryx.input-topic.broker": bus,
+                        "oryx.update-topic.broker": bus,
+                        "oryx.serving.api.port": 0,
+                        "oryx.serving.api.loops": 2})
+        config = load_config(overlay=overlay)
+        manager = (None if where == "card"
+                   else ALSServingModelManager(config, device="cpu"))
+        layers[where] = ServingLayer(config, model_manager=manager)
+        layers[where].start()
+        broker.send("OryxUpdate", "MODEL-REF", str(tmp_path / "model"))
+    try:
+        for sl in layers.values():
+            deadline = time.monotonic() + 120
+            while get(sl.port, "/ready")[0] != 200:
+                assert time.monotonic() < deadline, "never ready"
+                time.sleep(0.05)
+        view = layers["card"].model_manager.get_model()._device_view[0]
+        assert view.device.type == "cuda"
+        b = TopKBatcher.shared()
+        d0 = b.dispatches
+        T.reset_launches()
+        answers, launches = {}, {}
+        for where, sl in layers.items():
+            answers[where] = [get(sl.port, f"/recommend/u{j}?howMany=10")
+                              for j in range(n_users)]
+            launches[where] = (dict(T.LAUNCHES), b.dispatches - d0)
+        card_launches, card_dispatches = launches["card"]
+        assert card_launches["topk_dot_partial"] == card_dispatches > 0
+        assert card_launches["topk_merge"] == card_dispatches
+        # the CPU layer's dispatches run the plain versions
+        assert launches["cpu"][0] == card_launches
+    finally:
+        for sl in layers.values():
+            sl.close()
+    for (cs, cb), (ps, pb) in zip(answers["card"], answers["cpu"]):
+        assert cs == ps == 200
+        card, cpu = json.loads(cb), json.loads(pb)
+        assert len(card) == len(cpu) == 10
+        for (ci, cv), (pi, pv) in zip(card, cpu):
+            if ci == pi:
+                assert cv == pytest.approx(pv, rel=1e-6)
+            else:
+                assert cv == pytest.approx(pv, rel=1e-3, abs=1e-3)

@@ -4,6 +4,7 @@ on their own."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import textwrap
@@ -42,8 +43,9 @@ def test_every_port_module_imports_with_jax_blocked():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # the slice's modules: device, config, artifact, state, batcher, ...
-    assert int(out.stdout.strip()) >= 20
+    # the slices' modules: device, config, artifact, state, batcher, the
+    # bus, the HTTP frontends and routes, the CLI, ...
+    assert int(out.stdout.strip()) >= 45
 
 
 def test_port_sources_name_no_jax_package_import():
@@ -85,3 +87,58 @@ def test_entry_points_do_not_move_to_cpu_on_their_own(monkeypatch):
     with pytest.raises(RuntimeError):
         staged_device_put(np.zeros((2, 2), dtype=np.float32))
     assert ALSServingModel(ALSState(4, True), device="cpu").device.type == "cpu"
+
+
+# a dotted name in the JAX package (oryx_tpu.x, not oryx_tpu_torch.x); a
+# path such as /tmp/oryx_tpu/data is not a module
+_JAX_DOTTED = re.compile(r"(?<![\w/.])oryx_tpu\.[A-Za-z_]")
+
+
+@pytest.mark.parametrize("rel", ["oryx_tpu_torch/common/reference.conf",
+                                 "oryx_tpu_torch/apps/spi.py"])
+def test_config_defaults_and_spi_name_only_port_modules(rel):
+    """Class and module names in the port's config defaults and app
+    registry are loaded with importlib, which the import scan above cannot
+    see: none may name the JAX package."""
+    text = (ROOT / rel).read_text()
+    hits = [line for line in text.splitlines() if _JAX_DOTTED.search(line)]
+    assert not hits, hits
+    # the scan does see a JAX name when there is one
+    assert _JAX_DOTTED.search('x = ["oryx_tpu.serving.resources.common"]')
+    assert not _JAX_DOTTED.search('dir = "file:/tmp/oryx_tpu/flight"')
+
+
+def test_spi_overlay_loads_port_classes_only():
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.common.classutil import load_class
+    from oryx_tpu_torch.common.config import load_config
+
+    overlay = app_overlay("als")
+    names = [overlay["oryx.serving.model-manager-class"],
+             *overlay["oryx.serving.application-resources"]]
+    for name in names:
+        assert name.startswith("oryx_tpu_torch."), name
+    load_class(names[0])
+    config = load_config(overlay=overlay)
+    assert config.get("oryx.batch.update-class") is None
+    for name in load_config().get_list("oryx.serving.application-resources"):
+        assert name.startswith("oryx_tpu_torch."), name
+
+
+def test_serving_layer_and_cli_raise_without_cuda(monkeypatch):
+    """Built from config, the serving layer loads the ALS manager by name,
+    which resolves the card and raises without one, before any socket or
+    thread is opened; so does the CLI."""
+    from oryx_tpu_torch import cli
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingLayer(load_config(overlay=app_overlay("als")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serving", "--app", "als"])
+    with pytest.raises(ValueError, match="not ported"):
+        cli.main(["serving", "--app", "als", "--set",
+                  "oryx.serving.api.processes=2"])
