@@ -41,7 +41,33 @@ Phases, each printing JSON lines:
    score-mode exact one more burst, untimed, runs with the card traced by
    torch.profiler (device time, busy share). Then POST
    /pref must reach the input topic, and an UP row on the update topic
-   planting a new best item must come back from /recommend over HTTP.
+   planting a new best item must come back from /recommend over HTTP;
+5. train (the batch layer's trainer, no hand kernel on its path): the port's
+   build_and_evaluate at the bench's north star (162,000 x 59,000 x 25M
+   synthetic interactions, ml/synth.py seed 7, 50 features, 10 sweeps,
+   lambda 0.01, alpha 1, bf16 inputs to f32 products, 2% held out): its
+   stages' times, FLOP rate and its share of the bf16 and of the f32 peak,
+   held-out AUC (>= 0.87), NaN rows
+   (none) and peak card memory; then three more sweeps from the trained
+   factors, outside the build's time: one by the host's clock, one with
+   the card traced by torch.profiler (kernel time and launches, the card's
+   busy share of the sweep), one with host ops traced as well (device
+   time and calls by op: gather, bmm, cholesky_ex, solve_triangular,
+   scatter, other, each beside its bound); then f32 (TF32 off) and bf16
+   builds at the 1M warm-up shape (6,000 x 3,700 x 1M), same checks;
+6. lambda (the loop, at the 1M shape): one file:// bus, the als app's
+   classes from config. 1M events on the input topic; a full batch
+   generation on the card; the serving layer started on the same topics
+   (publish to /ready 200); /recommend for 64 users against the exact
+   float64 top-10 of the published factors (recall@10 1.0, exact ties
+   aside); the speed layer folds 20,000 new events in (64 of them for
+   users and items the model never saw) on the card, every UP row held
+   against the fold-in's plain version on the CPU (1e-4 relative), and the
+   time from the events' write to /recommend answering for a new user;
+   50,000 more events and a generation in a fresh batch layer that must
+   take the incremental path (warm start from the model dir); serving
+   must then serve the new generation. The fused top-k kernels' launches
+   in the serving leg are counted as in phases 3 and 4.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -51,6 +77,7 @@ non-zero; without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -818,6 +845,498 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         layer.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train (the batch layer's trainer at the north-star shape)
+# ---------------------------------------------------------------------------
+
+# the bench's north star (bench.py:1203-1215): ML-25M shape, 50 features,
+# 10 sweeps; and its 1M warm-up shape (bench.py:1184)
+TRAIN_SHAPE = (162_000, 59_000, 25_000_000)
+SMALL_SHAPE = (6_000, 3_700, 1_000_000)
+TRAIN_HP = {"features": 50, "iterations": 10, "lam": 0.01, "alpha": 1.0,
+            "seed": 7, "holdout_p": 0.02}
+MIN_AUC = 0.87  # tests/test_quality_gate.py floor
+ALS_REPLACES = "oryx_tpu/ops/als.py:535"  # _half_step (no Pallas kernel)
+
+# aten ops of the half-step, by what they do
+TRAIN_OPS = {
+    "gather": ("aten::index",),
+    "bmm": ("aten::bmm",),
+    "cholesky_ex": ("aten::linalg_cholesky_ex",),
+    "solve_triangular": ("aten::linalg_solve_triangular",),
+    "scatter": ("aten::index_put_",),
+}
+
+
+def train_op_bounds(u_dev, i_dev, k: int, itemsize: int) -> dict:
+    """Per sweep, the least time each op of the half-step could take
+    (H100 SXM peaks): gather = the gathered [B,P,K] bytes; bmm = the
+    normal-equation FLOPs (ops/flops.py, without the fixed side's gram),
+    f32 products for either compute type;
+    cholesky = n·K³/3 f32 FLOPs; the two triangular solves = 2·n·K² f32
+    FLOPs against reading both factors; scatter = the solved rows read and
+    written."""
+    from oryx_tpu_torch.ops.flops import als_halfstep_flops
+
+    shapes = [tuple(b[1].shape) for b in list(u_dev) + list(i_dev)]
+    n = sum(s[0] for s in shapes)
+    gathered = sum(s[0] * s[1] * k for s in shapes)
+    bmm_flops = sum(als_halfstep_flops(s[0], s[1], k, 0) for s in shapes)
+    out = {
+        "gather": bound(gathered * itemsize, 0, "bfloat16"),
+        "bmm": bound(0, bmm_flops, "float32"),
+        "cholesky_ex": bound(n * k * k * 4, n * k ** 3 / 3, "float32"),
+        "solve_triangular": bound(2 * n * k * k * 4, 2 * n * k * k, "float32"),
+        "scatter": bound(2 * n * k * 4, 0, "float32"),
+    }
+    return {name: {"bound_ms": ms, "bound_by": by} for name, (ms, by) in out.items()}
+
+
+def train_profile(torch, report, compute_dtype: str) -> dict:
+    """The build's data, one sweep at a time from its trained Y, untimed by
+    the build: one sweep by the host's clock; one traced with the card's
+    activity only (kernel time, launches, and the card's busy share of
+    that sweep's wall time); one traced with host ops as well, which
+    attributes the card's time to the half-step's ops (gather, bmm,
+    cholesky_ex, solve_triangular, scatter; the rest is "other"), beside
+    each op's bound."""
+    from torch.autograd import DeviceType
+
+    from oryx_tpu_torch.ops import als as A
+
+    data, model = report.data, report.model
+    k = model.y.shape[1]
+    lists = {}
+    for tag, ent, oth, n in (("u_buckets", data.users, data.items, data.n_users),
+                             ("i_buckets", data.items, data.users, data.n_items)):
+        lists[tag] = A._cached_lists(
+            tag, data, (1024, 1024, 1024),
+            lambda ent=ent, oth=oth, n=n: A.build_bucketed_lists(
+                ent, oth, data.values, n, 1024, block=1024, unit=1024),
+        )
+    u_dev = A._upload_buckets(lists["u_buckets"][0], data.n_users, "cuda")
+    i_dev = A._upload_buckets(lists["i_buckets"][0], data.n_items, "cuda")
+    y = torch.from_numpy(model.y).cuda()
+
+    def sweep():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A._als_train_bucketed(
+            u_dev, i_dev, y, TRAIN_HP["lam"], TRAIN_HP["alpha"],
+            implicit=True, iterations=1, blocks_u=lists["u_buckets"][1],
+            blocks_i=lists["i_buckets"][1], n_u=data.n_users,
+            compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_ms = sweep()
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CUDA]) as prof:
+        traced_ms = sweep()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    device_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        sweep()
+    events = prof.key_averages()
+    by_op = {}
+    for name, keys in TRAIN_OPS.items():
+        evs = [ev for ev in events if ev.key in keys]
+        by_op[name] = {"device_ms": sum(ev.device_time_total for ev in evs) / 1e3,
+                       "calls": sum(ev.count for ev in evs)}
+    attributed = sum(ev.self_device_time_total for ev in events
+                     if ev.device_type == DeviceType.CUDA) / 1e3
+    by_op["other"] = {
+        "device_ms": attributed - sum(v["device_ms"] for v in by_op.values()),
+        "calls": None,
+    }
+    bounds = train_op_bounds(u_dev, i_dev, k, 2 if compute_dtype == "bfloat16" else 4)
+    for name, b in bounds.items():
+        by_op[name].update(b)
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:10]
+    return {
+        "sweep_ms": plain_ms, "traced_sweep_ms": traced_ms,
+        "device_ms": device_ms, "device_busy_share": device_ms / traced_ms,
+        "kernel_launches": sum(ev.count for ev in kernels),
+        "by_op": by_op,
+        "top_kernels_ms": {ev.key[:80]: ev.self_device_time_total / 1e3
+                           for ev in top},
+    }
+
+
+def one_build(torch, shape, compute_dtype: str, device) -> dict:
+    from oryx_tpu_torch.ml.quality import build_and_evaluate
+    from oryx_tpu_torch.ops.flops import device_peak_flops
+
+    n_u, n_i, nnz = shape
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = build_and_evaluate(
+        n_u, n_i, nnz, features=TRAIN_HP["features"],
+        iterations=TRAIN_HP["iterations"], lam=TRAIN_HP["lam"],
+        alpha=TRAIN_HP["alpha"], compute_dtype=compute_dtype,
+        seed=TRAIN_HP["seed"], holdout_p=TRAIN_HP["holdout_p"],
+        device=device)
+    t = rep.timings
+    rate = t["train_flops"] / t["train_s"]
+    peak = device_peak_flops(compute_dtype) if device == "cuda" else None
+    peak32 = device_peak_flops("float32") if device == "cuda" else None
+    line = {
+        "shape": {"users": n_u, "items": n_i, "interactions": nnz,
+                  "features": TRAIN_HP["features"],
+                  "sweeps": TRAIN_HP["iterations"]},
+        "compute_dtype": compute_dtype,
+        "tf32": t["tf32"],
+        "synth_s": t["synth_s"], "agg_s": rep.agg_s, "lists_s": t["lists_s"],
+        "train_s": t["train_s"], "build_s": rep.build_s,
+        "wall_s": time.perf_counter() - t0,
+        "train_flops": t["train_flops"], "tflops_per_s": rate / 1e12,
+        "peak_share": rate / peak if peak else None,
+        "f32_peak_share": rate / peak32 if peak32 else None,
+        "auc": rep.auc, "nan_rows": rep.nan_rows,
+        "aggregated": len(rep.data.values),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                           if device == "cuda" else None),
+    }
+    check(rep.nan_rows == 0, f"{compute_dtype} build: {rep.nan_rows} NaN rows")
+    check(rep.auc >= MIN_AUC, f"{compute_dtype} build: AUC {rep.auc} < {MIN_AUC}")
+    check(not line["tf32"], "TF32 was on while the sweeps ran")
+    return line, rep
+
+
+def train_phase(torch, shape=TRAIN_SHAPE, small=SMALL_SHAPE,
+                device="cuda") -> dict:
+    """Phase 5: build_and_evaluate at the north-star shape in bf16, one
+    profiled sweep, then f32 and bf16 builds at the 1M shape. A small
+    build first brings up the card's libraries (cuBLAS, cuSOLVER), so that
+    the timed builds do not pay for it."""
+    from oryx_tpu_torch.ml.quality import build_and_evaluate
+
+    t0 = time.perf_counter()
+    build_and_evaluate(2_000, 1_000, 50_000, features=TRAIN_HP["features"],
+                       iterations=2, device=device)
+    warmup_s = time.perf_counter() - t0
+    big, rep = one_build(torch, shape, "bfloat16", device)
+    big["sweeps_per_s"] = TRAIN_HP["iterations"] / big["train_s"]
+    prof = train_profile(torch, rep, "bfloat16") if device == "cuda" else None
+    if prof is not None:
+        big["launches_per_sweep"] = prof["kernel_launches"]
+    del rep
+    small_f32, _ = one_build(torch, small, "float32", device)
+    small_bf16, _ = one_build(torch, small, "bfloat16", device)
+    return {"phase": "train", "warmup_s": warmup_s, "bf16": big, "profile": prof,
+            "small_f32": small_f32, "small_bf16": small_bf16}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the lambda loop (batch -> serving -> speed -> batch) on one bus
+# ---------------------------------------------------------------------------
+
+LAMBDA_USERS = 64          # /recommend probes against the exact top-10
+SPEED_EVENTS, SPEED_NEW = 20_000, 64
+DELTA_EVENTS = 50_000
+FOLD_RTOL = 1e-4  # relative to the row's largest entry, on top of ...
+UP_QUANTUM = 1e-6  # ... one unit of the UP codec's rounding (6 decimals),
+# which a difference in the 7th decimal can flip on either side
+
+
+def event_lines(np, users, items, values, t0_ms: int) -> list:
+    return [f"u{u},i{i},{v:g},{t0_ms + j}"
+            for j, (u, i, v) in enumerate(zip(users.tolist(), items.tolist(),
+                                               values.tolist()))]
+
+
+def published_factors(np, root: Path, ts: int) -> dict:
+    """Generation ts's model as it went out on the update topic: the
+    artifact's factors rounded as the UP rows round them (apps/updates.py)
+    and held in float32 as the serving state holds them."""
+    from oryx_tpu_torch.apps.updates import ROUND_DECIMALS
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+
+    art = ModelArtifact.read(root / str(ts))
+    pub = lambda a: np.round(np.asarray(a, np.float64), ROUND_DECIMALS).astype(
+        np.float32).astype(np.float64)  # noqa: E731
+    yids = art.get_extension_list("YIDs")
+    return {"x": pub(art.tensors["X"]), "y": pub(art.tensors["Y"]),
+            "row": {u: j for j, u in enumerate(art.get_extension_list("XIDs"))},
+            "yids": yids, "col": {i: j for j, i in enumerate(yids)}}
+
+
+def served_recall(np, port, model: dict, users: list) -> tuple | None:
+    """(strict recall@10, recall@10 counting a served item whose exact
+    score ties the 10th within 1e-6 relative) of /recommend against the
+    exact float64 top-10 of the published factors, without the items
+    /knownItems names for the user; None while an answer is not 200."""
+    hits = tie_hits = total = 0
+    for u in users:
+        status, body = http_get(port, f"/knownItems/{u}")
+        if status != 200:
+            return None
+        s = model["y"] @ model["x"][model["row"][u]]
+        for i in json.loads(body):
+            if i in model["col"]:
+                s[model["col"][i]] = -np.inf
+        top = {model["yids"][j] for j in np.argsort(-s, kind="stable")[:HOW_MANY]}
+        tenth = np.sort(s)[-HOW_MANY]
+        status, body = http_get(port, f"/recommend/{u}?howMany={HOW_MANY}")
+        if status != 200:
+            return None
+        ids = [r[0] for r in json.loads(body)]
+        check(len(ids) == HOW_MANY, f"short answer for {u}")
+        for i in ids:
+            hits += i in top
+            tie_hits += i in top or (
+                i in model["col"]
+                and s[model["col"][i]] >= tenth - 1e-6 * abs(tenth))
+        total += HOW_MANY
+    return hits / total, tie_hits / total
+
+
+def lambda_phase(torch, np, T, root: Path, device="cuda",
+                 shape=SMALL_SHAPE, speed_events=SPEED_EVENTS,
+                 delta_events=DELTA_EVENTS) -> dict:
+    """Phase 6: the whole loop on one file:// bus with the als app's
+    classes (apps/spi.py), each layer built from config."""
+    from oryx_tpu_torch.apps.als.batch import ALSUpdate
+    from oryx_tpu_torch.apps.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.apps.als.speed import ALSSpeedModelManager
+    from oryx_tpu_torch.apps.als.state import state_from_arrays
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import TopicProducer, get_broker, topic_admin
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.common.metrics import get_registry
+    from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
+    from oryx_tpu_torch.ml.synth import synthesize_interactions
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    bus = f"file://{root / 'bus'}"
+    overlay = dict(app_overlay("als"))
+    overlay.update({
+        "oryx.id": "smoke-lambda",
+        "oryx.input-topic.broker": bus, "oryx.update-topic.broker": bus,
+        "oryx.batch.storage.data-dir": f"file://{root / 'data'}",
+        "oryx.batch.storage.model-dir": f"file://{root / 'model'}",
+        "oryx.monitoring.quarantine.dir": f"file://{root / 'quarantine'}",
+        "oryx.serving.api.port": 0,
+        "oryx.speed.streaming.generation-interval-sec": 3600,
+        "oryx.batch.streaming.generation-interval-sec": 3600,
+        "oryx.als.hyperparams.features": TRAIN_HP["features"],
+        "oryx.als.hyperparams.iterations": TRAIN_HP["iterations"],
+        "oryx.als.hyperparams.lambda": TRAIN_HP["lam"],
+        "oryx.als.hyperparams.alpha": TRAIN_HP["alpha"],
+        "oryx.als.compute-dtype": "bfloat16",
+        "oryx.serving.min-model-load-fraction": 1.0,
+        "oryx.speed.min-model-load-fraction": 1.0,
+    })
+    cfg = load_config(overlay=overlay)
+    topics = {w: cfg.get_string(f"oryx.{w}-topic.message.topic")
+              for w in ("input", "update")}
+    for topic in topics.values():  # as `setup` would
+        topic_admin.maybe_create(bus, topic)
+    cpu = device == "cpu"  # a CPU rehearsal names the device; the card
+    # run builds every layer from config alone, as the CLI does
+
+    def batch_layer():
+        return BatchLayer(cfg, update=ALSUpdate(cfg, device="cpu") if cpu else None)
+
+    inputs = TopicProducer(get_broker(bus), topics["input"])
+    incremental = get_registry().counter("oryx_batch_incremental_total")
+    out = {"phase": "lambda", "shape": {"users": shape[0], "items": shape[1],
+                                        "interactions": shape[2]}}
+    layers = []
+    try:
+        # a. the events, behind a batch consumer that already exists
+        batch = batch_layer()
+        layers.append(batch)
+        batch.ensure_streams()
+        users, items, values = synthesize_interactions(*shape, seed=TRAIN_HP["seed"])
+        ts = int(time.time() * 1000)  # 13-digit generation stamps
+        t0 = time.perf_counter()
+        inputs.send_batch((None, line) for line in event_lines(
+            np, users, items, values, ts - 86_400_000))
+        out["write_s"] = time.perf_counter() - t0
+
+        # b. a full generation, trained on the card
+        d0 = incremental.value(kind="delta")
+        t0 = time.perf_counter()
+        n_new = batch.run_generation(ts)
+        out["generation_full_s"] = time.perf_counter() - t0
+        t_published = time.monotonic()
+        check(n_new == shape[2], f"generation 1 read {n_new} records")
+        check(incremental.value(kind="full") >= 1, "no full build counted")
+        batch.close()
+
+        # c. serving on the same topics
+        serving = ServingLayer(
+            cfg, model_manager=ALSServingModelManager(cfg, device="cpu")
+            if cpu else None)
+        layers.append(serving)
+        serving.start()
+        port = serving.port
+        status = None
+        while time.monotonic() - t_published < 300:
+            status, _ = http_get(port, "/ready")
+            if status == 200:
+                break
+            time.sleep(0.05)
+        out["publish_to_ready_s"] = time.monotonic() - t_published
+        check(status == 200, f"/ready answered {status}")
+
+        # d. /recommend against the exact top-10 of the published factors
+        model_root = root / "model"
+        probe = [f"u{int(u)}" for u in np.random.default_rng(SEED).choice(
+            np.unique(users), LAMBDA_USERS, replace=False)]
+        T.reset_launches()  # the serving leg's window opens
+        got = served_recall(np, port, published_factors(np, model_root, ts), probe)
+        check(got is not None, "/recommend or /knownItems did not answer 200")
+        strict, recall = got
+        out["recall_at_10"] = recall
+        out["recall_at_10_strict"] = strict
+        check(recall == 1.0, f"lambda recall@10 {recall} (strict {strict})")
+
+        # e. the speed layer folds new events in, on the card
+        speed = SpeedLayer(cfg, manager=ALSSpeedModelManager(cfg, device="cpu")
+                           if cpu else None)
+        layers.append(speed)
+        speed.start()
+        mgr = speed.manager
+        folds = []
+        real = mgr.build_updates
+
+        def build_updates(batch_records):
+            # the state as this micro-batch finds it, for the plain fold
+            # below (the listener applies the batch's own rows later)
+            st = mgr.state
+            x, xids, _ = st.x.snapshot()
+            y, yids, _ = st.y.snapshot()
+            before = state_from_arrays(st.features, st.implicit, xids, x, yids, y)
+            # ... and the very Cholesky factors the card will use: the same
+            # inputs, not a second factorization of the same Gram matrices
+            for mine, theirs in ((before.yty, st.yty), (before.xtx, st.xtx)):
+                mine._chol, mine._built_version = theirs.get(), mine._store.version
+            t = time.perf_counter()
+            built = real(batch_records)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            folds.append((batch_records, time.perf_counter() - t, built, before))
+            return built
+        mgr.build_updates = build_updates
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 300:
+            st = mgr.state
+            if (st is not None and st.fraction_loaded() >= 1.0
+                    and speed._update_consumer.lag() == 0):
+                break
+            time.sleep(0.05)
+        check(mgr.state is not None and mgr.state.fraction_loaded() >= 1.0,
+              "speed model never loaded")
+        rng = np.random.default_rng(SEED + 5)
+        su = rng.choice(users, speed_events)
+        si = rng.choice(items, speed_events)
+        lines = event_lines(np, su, si, np.full(speed_events, 2.0), ts)
+        half = SPEED_NEW // 2
+        known_item = f"i{int(items[0])}"
+        for j in range(half):  # new users with known items, known users
+            lines[j] = f"u-new-{j},{known_item},3,{ts + j}"  # with new items
+            lines[half + j] = f"{probe[j]},i-new-{j},3,{ts + half + j}"
+        t_write = time.monotonic()
+        inputs.send_batch((None, line) for line in lines)
+        n_speed = speed.run_batch()
+        check(n_speed == speed_events, f"speed read {n_speed} events")
+        status = None
+        while time.monotonic() - t_write < 60:
+            status, body = http_get(port, f"/recommend/u-new-0?howMany={HOW_MANY}")
+            if status == 200:
+                break
+            time.sleep(0.005)
+        out["event_to_served_s"] = time.monotonic() - t_write
+        check(status == 200, f"/recommend/u-new-0 answered {status}")
+
+        # f. every speed UP row against the fold-in's plain version: the
+        # same manager code on device="cpu" from the same state
+        twin = ALSSpeedModelManager(cfg, device="cpu")
+        n_rows = worst = worst_abs = 0
+        for records, _dt, got, before in folds:
+            twin.state = before
+            ref = twin.build_updates(records)
+            check(len(got) == len(ref), "card and CPU fold-ins differ in rows")
+            for (k1, m1), (k2, m2) in zip(got, ref):
+                a, b = json.loads(m1), json.loads(m2)
+                check(k1 == k2 == "UP" and a[:2] == b[:2], "row order differs")
+                va, vb = np.asarray(a[2]), np.asarray(b[2])
+                diff = float(np.abs(va - vb).max())
+                worst_abs = max(worst_abs, diff)
+                worst = max(worst, max(0.0, diff - UP_QUANTUM)
+                            / max(float(np.abs(vb).max()), 1e-30))
+                n_rows += 1
+        check(n_rows > 0, "the speed layer published no rows")
+        check(worst <= FOLD_RTOL, f"speed UP rows {worst} from the plain fold-in")
+        events = sum(len(f[0]) for f in folds)
+        out["speed"] = {
+            "events": events, "up_rows": n_rows,
+            "build_s": sum(f[1] for f in folds),
+            "events_per_s": events / sum(f[1] for f in folds),
+            "max_rel_err_vs_plain": worst, "max_abs_diff_vs_plain": worst_abs,
+            "new_user_served": True,
+        }
+        speed.close()
+        layers.remove(speed)
+
+        # g. a delta generation in a fresh batch layer (a restart: the
+        # snapshot and the warm-start factors come from disk)
+        rng = np.random.default_rng(SEED + 6)
+        du = rng.choice(users, delta_events)
+        di = rng.choice(items, delta_events)
+        inputs.send_batch((None, line) for line in event_lines(
+            np, du, di, np.full(delta_events, 1.0), ts + 1))
+        batch = batch_layer()
+        layers.append(batch)
+        upd, warm = batch.update, []
+        load_prev = upd._load_prev_factors
+
+        def load_prev_factors(model_dir):
+            load_prev(model_dir)
+            warm.append(upd._prev_y is not None)
+        upd._load_prev_factors = load_prev_factors
+        t0 = time.perf_counter()
+        batch.run_generation(ts + 1)
+        out["generation_delta_s"] = time.perf_counter() - t0
+        out["delta_builds"] = incremental.value(kind="delta") - d0
+        check(out["delta_builds"] == 1,
+              f"delta builds {out['delta_builds']} (not incremental)")
+        out["delta_sweeps"] = get_registry().gauge(
+            "oryx_batch_warm_iterations").value()
+        out["warm_start_from_model_dir"] = warm == [True]
+        check(warm == [True], f"no warm start from the model dir: {warm}")
+        batch.close()
+
+        # h. serving takes the new generation
+        model2 = published_factors(np, model_root, ts + 1)
+        t0 = time.monotonic()
+        recall2 = None
+        while time.monotonic() - t0 < 120:
+            got = served_recall(np, port, model2, probe)
+            recall2 = None if got is None else got[1]
+            if recall2 == 1.0:
+                break
+            time.sleep(0.1)
+        out["generation_2_served_after_s"] = time.monotonic() - t0
+        out["recall_at_10_generation_2"] = recall2
+        check(recall2 == 1.0, f"generation 2 not served: recall {recall2}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = dict(T.LAUNCHES)  # ... and closes
+        out["partial_launches_by_type"] = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+        if device == "cuda":
+            check(all(v > 0 for v in out["launches"].values()),
+                  f"the serving leg launched {out['launches']}")
+    finally:
+        for layer in layers:
+            layer.close()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -867,8 +1386,25 @@ def main() -> int:
                                exact_rows)
             emit(served)
             serving["http-" + mode] = served
-    TopKBatcher.shared().close()
     emit({"phase": "http-done", "seconds": time.monotonic() - t0})
+
+    t0 = time.monotonic()
+    trained = train_phase(torch)
+    trained["seconds"] = time.monotonic() - t0
+    emit(trained)
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    root = Path(__file__).resolve().parent / "build" / "smoke-lambda"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        loop = lambda_phase(torch, np, T, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loop["seconds"] = time.monotonic() - t0
+    emit(loop)
+    serving["lambda"] = loop
+    TopKBatcher.shared().close()
 
     launches = {
         name: sum(run["launches"][name] for run in serving.values())

@@ -11,9 +11,8 @@ the contract the framework layers load reflectively:
 
 ``--app <name>`` on the CLI overlays all four keys from the app's AppSpec.
 Specs are plain dotted strings naming the port's own classes — importing
-this module loads NO app code. A layer not ported yet is None (null in the
-overlay): the ALS batch and speed layers come with slice 2, and the
-kmeans, rdf, example and seq apps with their own slices (ROADMAP).
+this module loads NO app code. The kmeans, rdf, example and seq apps come
+with their own slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -72,8 +71,8 @@ def app_overlay(name: str) -> dict:
 
 register_app(AppSpec(
     name="als",
-    batch_update=None,
-    speed_manager=None,
+    batch_update="oryx_tpu_torch.apps.als.batch.ALSUpdate",
+    speed_manager="oryx_tpu_torch.apps.als.speed.ALSSpeedModelManager",
     serving_manager="oryx_tpu_torch.apps.als.serving.ALSServingModelManager",
     serving_resources=(
         "oryx_tpu_torch.serving.resources.common",

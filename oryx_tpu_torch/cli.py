@@ -1,14 +1,17 @@
-"""Operational CLI (the port's copy of the ``serving`` subcommand of
-oryx_tpu/cli.py):
+"""Operational CLI (the port's copy of the ``batch``, ``speed`` and
+``serving`` subcommands of oryx_tpu/cli.py):
 
+  python -m oryx_tpu_torch.cli batch --app als --conf oryx.conf
+  python -m oryx_tpu_torch.cli speed --app als --conf oryx.conf
   python -m oryx_tpu_torch.cli serving --app als --conf oryx.conf
 
-runs the serving layer on the CUDA card until interrupted. ``--set
-key=value`` overrides a config key (repeatable); ``--app <name>`` overlays
-the packaged app's classes and serving resources (apps/spi.py) underneath
-any explicit ``--set``. The JAX package's other subcommands and its
-serving replica supervisor (``oryx.serving.api.processes > 1``) are not
-ported yet (``ServingLayer`` raises on the latter).
+runs that layer on the CUDA card until interrupted (each raises without a
+card). ``--set key=value`` overrides a config key (repeatable); ``--app
+<name>`` overlays the packaged app's classes and serving resources
+(apps/spi.py) underneath any explicit ``--set``. The JAX package's other
+subcommands, its pod mode and its serving replica supervisor
+(``oryx.serving.api.processes > 1``) are not ported yet (``ServingLayer``
+raises on the latter, the batch layer on a pod config).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from oryx_tpu_torch.common.config import Config, load_config
 
 def _parse_args(argv):
     p = argparse.ArgumentParser(prog="oryx_tpu_torch", description=__doc__)
-    p.add_argument("command", choices=["serving"])
+    p.add_argument("command", choices=["batch", "speed", "serving"])
     p.add_argument(
         "--app", default=None, metavar="NAME",
         help="packaged app to run (registry lookup, apps/spi.py): als. "
@@ -69,6 +72,18 @@ def _run_until_interrupt(layer) -> int:
     return 0
 
 
+def cmd_batch(config: Config) -> int:
+    from oryx_tpu_torch.layers import BatchLayer
+
+    return _run_until_interrupt(BatchLayer(config))
+
+
+def cmd_speed(config: Config) -> int:
+    from oryx_tpu_torch.layers import SpeedLayer
+
+    return _run_until_interrupt(SpeedLayer(config))
+
+
 def cmd_serving(config: Config) -> int:
     from oryx_tpu_torch.serving.server import ServingLayer
 
@@ -92,7 +107,8 @@ def main(argv=None) -> int:
             raise SystemExit(str(e))
         args.set[:0] = [f"{k}={json.dumps(v)}" for k, v in overlay.items()]
     config = _build_config(args)
-    return cmd_serving(config)
+    cmd = {"batch": cmd_batch, "speed": cmd_speed, "serving": cmd_serving}
+    return cmd[args.command](config)
 
 
 if __name__ == "__main__":

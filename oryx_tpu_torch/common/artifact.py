@@ -1,6 +1,7 @@
 """Self-describing model artifact: JSON metadata plus optional npz tensor
-payloads (the port's copy of ``ModelArtifact`` and
-``read_artifact_from_update`` from oryx_tpu/common/artifact.py).
+payloads (the port's copy of ``ModelArtifact``, ``read_artifact_from_update``
+and the publisher side, ``publish_model_ref``, of
+oryx_tpu/common/artifact.py).
 
 It reads what the JAX package's ``ModelArtifact.write`` / ``to_string``
 produce, so the artifact is the weight interchange between the two
@@ -8,8 +9,10 @@ packages. Layout on disk (a directory):
     <dir>/model.json      {"app":..., "extensions":{...}, "content":{...}}
     <dir>/tensors.npz     optional named ndarray payloads
 
-The bus-chunked MODEL-REF relay is not ported yet: a MODEL-REF must name a
-path readable on this host.
+The consumer side of the bus-chunked MODEL-REF relay (``ArtifactRelay``,
+ROADMAP queue 1 item 3) is not ported yet: the port's consumers skip
+``MODEL-CHUNK`` records, and a MODEL-REF must name a path readable on this
+host (with the layers on one host it does).
 """
 
 from __future__ import annotations
@@ -118,3 +121,79 @@ def read_artifact_from_update(key: str, message: str) -> ModelArtifact:
             raise FileNotFoundError(f"MODEL-REF {message} is not readable locally")
         return ModelArtifact.read(p)
     raise ValueError(f"not a model update key: {key}")
+
+
+# Update-topic key of one chunk of an oversized artifact's bytes.
+CHUNK_KEY = "MODEL-CHUNK"
+
+
+def publish_model_ref(
+    producer,
+    serialized: str,
+    model_path: str,
+    max_message_size: int,
+    transfer: bool = True,
+) -> None:
+    """Publish an oversized model as MODEL-CHUNK x N + MODEL-REF. transfer
+    False restores the reference's bare-path behavior (shared-mount
+    deployments that don't want the topic to carry the artifact bytes)."""
+    # headroom for the JSON envelope (ref path + indices + sha), then 4/3
+    # b64 expansion; a cap too small to carry even the envelope falls back
+    # to the bare reference (chunks would overrun the topic's limit)
+    budget = (max_message_size - 512 - len(model_path)) // 4 * 3
+    if transfer and budget < 1:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "update-topic max-size %d too small for artifact chunks; "
+            "publishing bare MODEL-REF (consumers need path access)",
+            max_message_size,
+        )
+        transfer = False
+    if transfer:
+        import hashlib
+        import math
+
+        raw = serialized.encode("utf-8")
+        sha = hashlib.sha256(raw).hexdigest()
+        n = max(1, math.ceil(len(raw) / budget))
+        # chunks ship in bounded batches through send_batch (one broker
+        # lock round-trip per group instead of per chunk; same-key records
+        # share a partition, so publish order is preserved). The group cap
+        # bounds transient memory to ~8 encoded chunks, not the whole
+        # artifact twice.
+        send_batch = getattr(producer, "send_batch", None)
+        batch: list[tuple[str, str]] = []
+
+        def _flush() -> None:
+            if not batch:
+                return
+            if send_batch is not None:
+                send_batch(batch)
+            else:  # bare-broker callers without the batch API
+                for key, msg in batch:
+                    producer.send(key, msg)
+            batch.clear()
+
+        for i in range(n):
+            batch.append(
+                (
+                    CHUNK_KEY,
+                    json.dumps(
+                        {
+                            "ref": model_path,
+                            "i": i,
+                            "n": n,
+                            "sha": sha,
+                            "data": base64.b64encode(
+                                raw[i * budget : (i + 1) * budget]
+                            ).decode("ascii"),
+                        },
+                        separators=(",", ":"),
+                    ),
+                )
+            )
+            if len(batch) >= 8:
+                _flush()
+        _flush()
+    producer.send("MODEL-REF", model_path)

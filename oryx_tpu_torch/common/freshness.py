@@ -7,7 +7,7 @@ model being served?* The reference offers nothing here; the only signal is
 a log line when a model loads. The batch layer stamps every model publish
 with a framework-level ``TRACE`` message on the update topic (published
 immediately AFTER its MODEL/MODEL-REF so app-visible record order is
-unchanged; the JAX package's ``publish_stamp`` writes it), and every
+unchanged; ``publish_stamp`` writes it), and every
 consumer of the update topic (``_dispatch_update`` in api.py) intercepts
 the stamp — app model managers never see it.
 
@@ -49,6 +49,31 @@ FRESHNESS_BUCKETS = (
     0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 900.0,
     3600.0, 21600.0, 86400.0,
 )
+
+
+def publish_stamp(
+    generation: int | None = None, quality: dict | None = None
+) -> str:
+    """Serialize a publish-time stamp. Carries the publisher's current
+    span context (the batch generation's span) when tracing is on, and
+    the generation's eval scorecard (``quality``: metric name -> value,
+    e.g. ``{"auc": 0.87}``) so every consuming tier can report what the
+    batch harness measured for the model it is serving."""
+    stamp: dict = {"published_ms": int(time.time() * 1000)}
+    if generation is not None:
+        stamp["generation"] = generation
+    if quality:
+        stamp["quality"] = {
+            str(k): float(v)
+            for k, v in quality.items()
+            if isinstance(v, (int, float)) and v == v
+        }
+    ctx = tracing.current_span()
+    if ctx is not None:
+        stamp["traceparent"] = tracing.format_traceparent(
+            ctx.trace_id, ctx.span_id
+        )
+    return json.dumps(stamp)
 
 
 class ModelFreshness:

@@ -1,6 +1,6 @@
 """Metrics registry + Prometheus text exposition (the port's copy of
-oryx_tpu/common/metrics.py; its JAX profiler hook, ``maybe_profile``, is
-not ported).
+oryx_tpu/common/metrics.py; its profiler hook, ``maybe_profile``, writes a
+``torch.profiler`` trace where the JAX package writes a JAX one).
 
 The reference has no metrics subsystem at all — observability is delegated
 to the Spark UI and rate-limited log lines (SURVEY.md §5 "no metrics
@@ -21,6 +21,19 @@ DEFAULT_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
+
+# Batch-generation-scale buckets: full model rebuilds run seconds to hours
+# (the reference's default generation interval is 6h).
+GENERATION_BUCKETS = (
+    1.0, 5.0, 15.0, 60.0, 300.0, 900.0, 1800.0, 3600.0, 10800.0, 21600.0,
+)
+
+# Speed-micro-batch-scale buckets: 10ms up to well past the default 10s
+# micro-batch interval.
+MICROBATCH_BUCKETS = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0, 600.0,
+)
+
 
 def exponential_buckets(
     start: float, factor: float, count: int
@@ -490,3 +503,42 @@ _default = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     return _default
+
+
+@contextmanager
+def maybe_profile(profile_dir: str | None, name: str) -> Iterator[None]:
+    """``torch.profiler`` trace (host, and the card when there is one)
+    around a block when a profile dir is configured
+    (oryx.monitoring.profile-dir); no-op otherwise. The Chrome trace lands
+    in <dir>/<name>-<ts>.json for Perfetto. A profiler that fails to start
+    or to write is logged and never breaks the traced computation."""
+    if not profile_dir:
+        yield
+        return
+    import logging
+    import os
+
+    import torch
+
+    log = logging.getLogger(__name__)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        prof.__enter__()
+    except Exception:  # noqa: BLE001 - e.g. a profiler already active
+        log.warning("profiler did not start; %s runs untraced", name, exc_info=True)
+        yield
+        return
+    try:
+        yield
+    finally:
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, f"{name}-{int(time.time() * 1000)}.json")
+            )
+        except Exception:  # noqa: BLE001 - the traced work already ran
+            log.warning("profile trace for %s not written", name, exc_info=True)

@@ -466,3 +466,135 @@ def test_serving_layer_on_the_card_answers_like_the_cpu(cuda_device, tmp_path):
                 assert cv == pytest.approx(pv, rel=1e-6)
             else:
                 assert cv == pytest.approx(pv, rel=1e-3, abs=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# ALS training and fold-in on the card (library ops; no hand kernel)
+# ---------------------------------------------------------------------------
+
+def _half_step_inputs(n=256, p=64, k=50, m=3000, seed=0, singular_row=None):
+    rng = np.random.default_rng(seed)
+    f = (rng.standard_normal((m, k)) * 0.3).astype(np.float32)
+    idx = rng.integers(0, m, (n, p)).astype(np.int32)
+    mask = (rng.random((n, p)) < 0.6).astype(np.float32)
+    val = (rng.integers(1, 6, (n, p)) * mask).astype(np.float32)
+    if singular_row is not None:  # a row of NaN strengths never solves
+        val[singular_row] = np.nan
+        mask[singular_row] = 1.0
+    return f, idx, val, mask
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_half_step_on_the_card_matches_the_cpu(cuda_device, implicit, dtype, rtol):
+    from oryx_tpu_torch.ops import als as A
+    from oryx_tpu_torch.ops.vector import full_f32, gram
+
+    f, idx, val, mask = _half_step_inputs()
+    outs = []
+    for dev in ("cpu", cuda_device):
+        ft = torch.from_numpy(f).to(dev)
+        with full_f32():
+            x = A._half_step(
+                ft, gram(ft), *(torch.from_numpy(a).to(dev) for a in (idx, val, mask)),
+                0.01, 1.0, implicit, 64, compute_dtype=dtype,
+            )
+        assert x.dtype == torch.float32
+        outs.append(x.cpu().numpy())
+    cpu, card = outs
+    scale = np.abs(cpu).max()
+    np.testing.assert_allclose(card, cpu, rtol=rtol, atol=rtol * scale)
+
+
+def test_bf16_normal_equations_use_f32_outputs(cuda_device):
+    """bf16 inputs give f32 normal equations (products and sums in f32,
+    TF32 off), equal to the CPU version's up to the order of the sums."""
+    from oryx_tpu_torch.ops import als as A
+    from oryx_tpu_torch.ops.vector import full_f32
+
+    rng = np.random.default_rng(3)
+    yu = torch.from_numpy(rng.standard_normal((8, 64, 16)).astype(np.float32))
+    w = torch.from_numpy((rng.random((8, 64)) * 3).astype(np.float32))
+    yu, w = yu.bfloat16(), w.bfloat16()
+    with full_f32():
+        card = A._weighted_gram(yu.cuda(), w.cuda())
+        cpu = A._weighted_gram(yu, w)
+        rhs = A._weighted_sum(yu.cuda(), w.cuda())
+        rhs_cpu = A._weighted_sum(yu, w)
+    assert card.dtype == cpu.dtype == rhs.dtype == torch.float32
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(rhs.cpu().numpy(), rhs_cpu.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_indefinite_system_retries_and_never_nans(cuda_device):
+    """One row of the batch cannot be factored: cholesky_ex reports it in
+    info (on the card its partial factor holds NaN, on the CPU it is
+    finite: the guard reads both), the jittered retry runs for that row
+    only, a row that still fails comes out zero, and nothing is NaN."""
+    from oryx_tpu_torch.ops import als as A
+    from oryx_tpu_torch.ops.vector import full_f32, gram
+
+    a = torch.tensor([[1.0, 2.0], [2.0, 1.0]], device=cuda_device)
+    _chol, info = torch.linalg.cholesky_ex(a)
+    assert int(info) != 0
+    x, ok = A.batched_spd_solve_ex(a[None], torch.ones(1, 2, device=cuda_device))
+    assert ok.tolist() == [False]
+
+    f, idx, val, mask = _half_step_inputs(n=64, p=16, k=8, m=500, singular_row=5)
+    ft = torch.from_numpy(f).cuda()
+    calls = []
+    real = A.batched_spd_solve_ex
+
+    def spy(a, b):
+        calls.append(a.shape[0])
+        return real(a, b)
+
+    A.batched_spd_solve_ex = spy
+    try:
+        with full_f32():
+            x = A._half_step(
+                ft, gram(ft), *(torch.from_numpy(v).cuda() for v in (idx, val, mask)),
+                0.01, 1.0, True, 32, compute_dtype="bfloat16",
+            )
+    finally:
+        A.batched_spd_solve_ex = real
+    assert calls == [32, 32, 1]  # two blocks, then the one failed row
+    x = x.cpu().numpy()
+    assert np.isfinite(x).all()
+    assert not x[5].any()
+    assert np.abs(x[np.arange(64) != 5]).sum(axis=1).min() > 0
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+def test_fold_in_on_the_card_matches_the_cpu(cuda_device, implicit):
+    from oryx_tpu_torch.ops.als import fold_in_batch
+
+    rng = np.random.default_rng(4)
+    k, n = 50, 2000
+    y = rng.standard_normal((300, k)).astype(np.float32)
+    chol = np.linalg.cholesky(y.T @ y + 1e-4 * np.eye(k)).astype(np.float32)
+    vals = rng.uniform(-1, 3, n).astype(np.float32)
+    xus = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    xus[::7] = 0.0  # new users
+    yis = y[rng.integers(0, 300, n)]
+    outs = [
+        fold_in_batch(*(torch.from_numpy(a).to(dev) for a in (chol, vals, xus, yis)),
+                      implicit=implicit).cpu().numpy()
+        for dev in ("cpu", cuda_device)
+    ]
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-4, atol=1e-5)
+
+
+def test_train_als_on_the_card_matches_the_cpu(cuda_device):
+    from oryx_tpu_torch.ops.als import aggregate_interactions, train_als
+
+    rng = np.random.default_rng(5)
+    u = rng.integers(0, 300, 5000)
+    i = rng.integers(0, 200, 5000)
+    data = aggregate_interactions(u, i, rng.integers(1, 5, 5000).astype(float))
+    y0 = (rng.standard_normal((data.n_items, 8)) * 0.1 + 0.35).astype(np.float32)
+    kw = dict(features=8, lam=0.01, iterations=3, resume_y=y0)
+    cpu = train_als(data, device="cpu", **kw)
+    card = train_als(data, device="cuda", **kw)
+    for a, b in ((card.x, cpu.x), (card.y, cpu.y)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3 * np.abs(b).max())

@@ -4,6 +4,7 @@ on their own."""
 
 from __future__ import annotations
 
+import json
 import re
 import subprocess
 import sys
@@ -19,7 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_every_port_module_imports_with_jax_blocked():
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, json, pkgutil, sys
         sys.modules["jax"] = None
         import oryx_tpu_torch
         names = ["oryx_tpu_torch"] + [
@@ -35,7 +36,7 @@ def test_every_port_module_imports_with_jax_blocked():
         )
         assert not leaked, leaked
         assert sys.modules["jax"] is None
-        print(len(names))
+        print(json.dumps(names))
         """
     )
     out = subprocess.run(
@@ -43,9 +44,23 @@ def test_every_port_module_imports_with_jax_blocked():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+    names = set(json.loads(out.stdout))
     # the slices' modules: device, config, artifact, state, batcher, the
-    # bus, the HTTP frontends and routes, the CLI, ...
-    assert int(out.stdout.strip()) >= 45
+    # bus, the HTTP frontends and routes, the CLI, the trainer and the
+    # batch and speed layers, ...
+    assert len(names) >= 60
+    assert {
+        "oryx_tpu_torch.common.rng", "oryx_tpu_torch.ops.vector",
+        "oryx_tpu_torch.ops.solver", "oryx_tpu_torch.ops.flops",
+        "oryx_tpu_torch.ops.als_probe",
+        "oryx_tpu_torch.ml.synth", "oryx_tpu_torch.ml.evaluate",
+        "oryx_tpu_torch.ml.quality", "oryx_tpu_torch.ml.hyperparams",
+        "oryx_tpu_torch.ml.update", "oryx_tpu_torch.common.executil",
+        "oryx_tpu_torch.common.quarantine", "oryx_tpu_torch.bus.native",
+        "oryx_tpu_torch.apps.als.batch", "oryx_tpu_torch.apps.als.speed",
+        "oryx_tpu_torch.layers.datastore", "oryx_tpu_torch.layers.watchdog",
+        "oryx_tpu_torch.layers.batch", "oryx_tpu_torch.layers.speed",
+    } <= names
 
 
 def test_port_sources_name_no_jax_package_import():
@@ -109,18 +124,28 @@ def test_config_defaults_and_spi_name_only_port_modules(rel):
 
 
 def test_spi_overlay_loads_port_classes_only():
+    from oryx_tpu_torch.api import (
+        BatchLayerUpdate,
+        ServingModelManager,
+        SpeedModelManager,
+    )
     from oryx_tpu_torch.apps.spi import app_overlay
     from oryx_tpu_torch.common.classutil import load_class
     from oryx_tpu_torch.common.config import load_config
 
     overlay = app_overlay("als")
-    names = [overlay["oryx.serving.model-manager-class"],
+    classes = {
+        "oryx.batch.update-class": BatchLayerUpdate,
+        "oryx.speed.model-manager-class": SpeedModelManager,
+        "oryx.serving.model-manager-class": ServingModelManager,
+    }
+    names = [*(overlay[key] for key in classes),
              *overlay["oryx.serving.application-resources"]]
     for name in names:
-        assert name.startswith("oryx_tpu_torch."), name
-    load_class(names[0])
+        assert name is not None and name.startswith("oryx_tpu_torch."), name
     config = load_config(overlay=overlay)
-    assert config.get("oryx.batch.update-class") is None
+    for key, base in classes.items():
+        assert issubclass(load_class(config.get_string(key)), base), key
     for name in load_config().get_list("oryx.serving.application-resources"):
         assert name.startswith("oryx_tpu_torch."), name
 
@@ -142,3 +167,25 @@ def test_serving_layer_and_cli_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="not ported"):
         cli.main(["serving", "--app", "als", "--set",
                   "oryx.serving.api.processes=2"])
+
+
+def test_batch_and_speed_layers_and_cli_raise_without_cuda(monkeypatch):
+    """Built from config alone, the batch and speed layers load the ALS
+    update and speed manager by name, which resolve the card and raise
+    without one; so do ``cli batch`` and ``cli speed``."""
+    from oryx_tpu_torch import cli
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = load_config(overlay=app_overlay("als"))
+    for layer in (BatchLayer, SpeedLayer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            layer(config)
+    for command in ("batch", "speed"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([command, "--app", "als"])
+    with pytest.raises(ValueError, match="item 12"):
+        cli.main(["batch", "--app", "als", "--set",
+                  "oryx.compute.distributed.num-processes=2"])
