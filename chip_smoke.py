@@ -39,9 +39,27 @@ Phases, each printing JSON lines:
    answer must be 200; recall@10 is held against the same float64
    ranking; kernel launches must equal the batcher's dispatches. In
    score-mode exact one more burst, untimed, runs with the card traced by
-   torch.profiler (device time, busy share). Then POST
+   torch.profiler (device time, busy share). Each http line splits the
+   timed burst's dispatch cycles by the batcher's own accounting: the
+   dispatch records (common/perfstats.py; their count must equal the
+   dispatches, each with occupancy 1.0), oryx_device_dispatch_seconds p50
+   and p99, oryx_device_idle_gap_seconds summed by cause, the dispatcher
+   thread's own pieces (wait, stage, issue, sync, distribute; they do
+   not overlap) and the share of the window from first launch to last
+   read-back that they account for, and the burn-triggered profile
+   captures in the burst; beside it /healthz's mfu, occupancy, slo_burn
+   and the latency budget's queue_wait and device. In score-mode quantized
+   one GET /debug/profile?seconds=2 runs during one more burst: its
+   dispatch records and its torch.profiler trace (which must hold top-k
+   kernels). Then POST
    /pref must reach the input topic, and an UP row on the update topic
    planting a new best item must come back from /recommend over HTTP;
+4b. wedge: the serving layer again, its batcher set to declare a wedge
+   after 2 s and probe every 1 s, and a one-shot 5 s latency fault armed
+   at serving.device (common/faults.py): the stuck request must get 503
+   with Retry-After, /healthz must report device-down (503) while the card
+   is down, /debug/flight must hold the health-degraded and wedge events,
+   and after the probe recovers the card a burst of 256 must be all 200;
 5. train (the batch layer's trainer, no hand kernel on its path): the port's
    build_and_evaluate at the bench's north star (162,000 x 59,000 x 25M
    synthetic interactions, ml/synth.py seed 7, 50 features, 10 sweeps,
@@ -70,22 +88,29 @@ Phases, each printing JSON lines:
    in the serving leg are counted as in phases 3 and 4.
 
 The second-to-last line is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Any failed check raises, so the script exits
+{"ok": true, "device": {...}}. With --ab-parent DIR the script runs the
+http A/B instead (cli() and AB_VARIANTS below). Any failed check raises, so the script exits
 non-zero; without CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import argparse
+import itertools
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 SEED = 20240611
+# scratch for the flight rings and profile traces (listed in .gitignore)
+SMOKE_BUILD = Path(__file__).resolve().parent / "build"
 N_ITEMS, N_USERS, FEATURES = 1_000_000, 100_000, 50
 N_REQUESTS, HOW_MANY, KNOWN_PER_USER = 2048, 10, 5
 N_UPDATES = 100
@@ -702,6 +727,12 @@ def http_burst(port: int, paths: list[str]) -> list:
 
 
 def http_get(port: int, path: str, method: str = "GET", body=None):
+    status, _headers, data = http_get_full(port, path, method, body)
+    return status, data
+
+
+def http_get_full(port: int, path: str, method: str = "GET", body=None):
+    """One request: (status, headers, body)."""
     import http.client
 
     c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
@@ -709,30 +740,68 @@ def http_get(port: int, path: str, method: str = "GET", body=None):
         c.request(method, path, body=body,
                   headers={"Accept": "application/json"})
         r = c.getresponse()
-        return r.status, r.read()
+        return r.status, dict(r.getheaders()), r.read()
     finally:
         c.close()
 
 
-def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
-    """Phase 4 in one score mode: ServingLayer from config, MODEL-REF over
-    the bus, /ready, a burst of /recommend from other processes, /pref to
-    the input topic, an UP row served over HTTP."""
+def quantile(vals: list, q: float) -> float:
+    """Nearest-rank quantile of a sorted non-empty list."""
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+
+TIMELINE_PIECES = ("wait", "stage", "issue", "sync", "distribute")
+
+
+def timeline_pieces(timeline, t_a: float, t_b: float) -> dict:
+    """Seconds of each piece of the batcher's dispatcher timeline that
+    fall inside [t_a, t_b] (time.monotonic)."""
+    pieces = dict.fromkeys(TIMELINE_PIECES, 0.0)
+    for piece, t0, t1 in list(timeline):
+        pieces[piece] += max(0.0, min(t1, t_b) - max(t0, t_a))
+    return pieces
+
+
+def burn_captures(flight_dir: str, since_wall: float) -> int:
+    """Burn-triggered profile captures (common/perfattr.py) in the flight
+    ring since since_wall (time.time()), once every running capture has
+    ended (each records its event when its window closes)."""
+    from oryx_tpu_torch.common.flightrec import read_events
+
+    for t in threading.enumerate():
+        if t.name == "oryx-burn-capture":
+            t.join(timeout=60)
+    return sum(1 for e in read_events(flight_dir)
+               if e.get("kind") == "profile-capture"
+               and e.get("ts_ms", 0) >= since_wall * 1e3)
+
+
+_BROKERS = itertools.count()
+
+
+def start_http_layer(mode: str, path: str, extra: dict | None = None):
+    """A ServingLayer from config in one score mode, on a mem:// broker of
+    its own (a broker is process-global: a second layer on the same name
+    would replay the first's update topic), with the model published as
+    MODEL-REF and /ready 200. Returns (layer, config, broker, topics,
+    update producer, start seconds, ready seconds)."""
     from oryx_tpu_torch.apps.spi import app_overlay
-    from oryx_tpu_torch.bus import ConsumeDataIterator, TopicProducer
-    from oryx_tpu_torch.bus import get_broker, topic_admin
+    from oryx_tpu_torch.bus import TopicProducer, get_broker, topic_admin
     from oryx_tpu_torch.common.config import load_config
-    from oryx_tpu_torch.serving.batcher import TopKBatcher
     from oryx_tpu_torch.serving.server import ServingLayer
 
-    broker = f"mem://chip-smoke-{mode}"
+    broker = f"mem://chip-smoke-{mode}-{next(_BROKERS)}"
     overlay = dict(app_overlay("als"))
     overlay.update({
         "oryx.update-topic.broker": broker,
         "oryx.input-topic.broker": broker,
         "oryx.serving.api.port": 0,
         "oryx.serving.api.score-mode": mode,
+        "oryx.monitoring.flight.dir": str(SMOKE_BUILD / "smoke-flight"),
+        "oryx.monitoring.profile.enabled": True,
+        "oryx.monitoring.profile.dir": str(SMOKE_BUILD / "smoke-profile"),
     })
+    overlay.update(extra or {})
     config = load_config(overlay=overlay)
     topics = {w: config.get_string(f"oryx.{w}-topic.message.topic")
               for w in ("input", "update")}
@@ -743,28 +812,87 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
     layer.start()
     try:
         start_s = time.monotonic() - t0
-        port = layer.port
         update = TopicProducer(get_broker(broker), topics["update"])
         t0 = time.monotonic()
         update.send("MODEL-REF", path)
         status = None
         while time.monotonic() - t0 < 600:
-            status, _ = http_get(port, "/ready")
+            status, _ = http_get(layer.port, "/ready")
             if status == 200:
                 break
             time.sleep(0.05)
         ready_s = time.monotonic() - t0
         check(status == 200, f"/ready answered {status} after {ready_s} s")
+    except BaseException:
+        layer.close()
+        raise
+    return layer, config, broker, topics, update, start_s, ready_s
+
+
+def dispatch_cycle(recs: list, pa, timeline) -> dict:
+    """Where the burst's dispatch cycles went, from the batcher's own
+    accounting. The window runs from the burst's first launch to its last
+    results on the host. Dispatch seconds (common/perfstats.py records)
+    and idle gaps by cause (common/perfattr.py; the first launch's gap,
+    which spans the idle time before the burst, is left out) are the
+    card's view: with the depth-1 pipeline a dispatch's interval spans
+    the next cycle, so the two overlap and are not summed. The share is
+    built from the dispatcher thread's timeline instead (serving/
+    batcher.py): its pieces run in sequence on one thread, each is
+    clipped to the window, and their sum over the window is the share
+    of the burst the loop accounts for; the rest is its bookkeeping."""
+    recs = sorted(recs, key=lambda r: r.t_start)
+    t_a = recs[0].t_start
+    t_b = max(r.t_start + r.wall_s for r in recs)
+    gaps = pa.idle_gaps_since(recs[1].t_start) if len(recs) > 1 else {}
+    by_cause = {c: gaps.get(c, 0.0) for c in (
+        "empty_queue", "host_serialize", "compile_stall", "failover_backoff",
+        "unattributed")}
+    pieces = timeline_pieces(timeline, t_a, t_b)
+    walls = sorted(r.wall_s for r in recs)
+    window = t_b - t_a
+    return {
+        "dispatches": len(recs),
+        "dispatch_seconds_p50": quantile(walls, 0.50),
+        "dispatch_seconds_p99": quantile(walls, 0.99),
+        "dispatch_seconds_sum": sum(walls),
+        "idle_gap_seconds": by_cause,
+        "window_s": window,
+        "dispatcher_seconds": pieces,
+        "accounted_share": sum(pieces.values()) / window,
+        "mean_cycle_ms": window / len(recs) * 1e3,
+        "mean_piece_ms": {k: v / len(recs) * 1e3 for k, v in pieces.items()},
+    }
+
+
+def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
+    """Phase 4 in one score mode: ServingLayer from config, MODEL-REF over
+    the bus, /ready, a burst of /recommend from other processes, /pref to
+    the input topic, an UP row served over HTTP."""
+    from oryx_tpu_torch.bus import ConsumeDataIterator, get_broker
+    from oryx_tpu_torch.common.perfattr import get_perfattr
+    from oryx_tpu_torch.common.perfstats import get_perfstats
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+    layer, config, broker, topics, update, start_s, ready_s = \
+        start_http_layer(mode, path)
+    try:
+        port = layer.port
         y_dev = layer.model_manager.get_model()._device_view[0]
         check(y_dev.device.type == "cuda", "served view is not on the card")
 
         batcher = TopKBatcher.shared()
         paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in users]
         d0, c0 = batcher.dispatches, batcher.coalesced
+        t_burst, t_wall = time.monotonic(), time.time()
         T.reset_launches()  # the main path's window opens
         rows = http_burst(port, paths)
         torch.cuda.synchronize()
         launches = dict(T.LAUNCHES)  # ... and closes
+        captures = burn_captures(
+            config.get_string("oryx.monitoring.flight.dir"), t_wall)
+        recs = [r for r in get_perfstats().records_since(t_burst)
+                if r.kind == "serving"]
         by_type = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
         dispatches = batcher.dispatches - d0
         coalesced = batcher.coalesced - c0
@@ -778,6 +906,13 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         check(launches["topk_dot_partial"] == dispatches
               and launches["topk_merge"] == dispatches,
               f"launches {launches} != dispatches {dispatches}")
+        check(len(recs) == dispatches,
+              f"{len(recs)} dispatch records for {dispatches} dispatches")
+        check(all(r.score_mode == mode and r.occupancy == 1.0 for r in recs),
+              "a dispatch record with another mode or occupancy")
+        cycle = dispatch_cycle(recs, get_perfattr(), batcher.timeline)
+        check(0.0 < cycle["accounted_share"] <= 1.0 + 1e-9,
+              f"dispatcher pieces overlap: share {cycle['accounted_share']}")
         known = model_data["known_idx"]
         hits = 0
         for j, _status, _t0, _t1, ids in rows:
@@ -791,6 +926,20 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         wall = max(r[3] for r in rows) - min(r[2] for r in rows)
         lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
         _s, healthz = http_get(port, "/healthz")
+        healthz = json.loads(healthz)
+        check("mfu" in healthz and healthz["mfu"] > 0,
+              f"/healthz mfu {healthz.get('mfu')}")
+        check(healthz.get("occupancy", {}).get("mean") == 1.0,
+              f"/healthz occupancy {healthz.get('occupancy')}")
+        check("serving-latency" in healthz.get("slo_burn", {}),
+              f"/healthz slo_burn {healthz.get('slo_burn')}")
+        budget = healthz.get("latency_budget", {}).get("phases", {})
+        check("queue_wait" in budget and "device" in budget,
+              f"latency budget phases {sorted(budget)}")
+        capture = None
+        if mode == "quantized":
+            # one /debug/profile window inside one more burst, untimed
+            capture = profile_capture(port, paths)
         traced = None
         if mode == "exact":
             # the same burst again, untimed, with the card traced (device
@@ -837,12 +986,174 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
             "recall_at_10": recall, "dispatches": dispatches,
             "mean_batch": coalesced / dispatches, "launches": launches,
             "partial_launches_by_type": by_type,
-            "latency_budget": json.loads(healthz).get("latency_budget"),
+            "dispatch_cycle": cycle,
+            "burn_captures": captures,
+            "budget_queue_wait": budget["queue_wait"],
+            "budget_device": budget["device"],
+            "healthz_mfu": healthz["mfu"],
+            "healthz_occupancy": healthz["occupancy"],
+            "slo_burn": healthz["slo_burn"],
+            "latency_budget": healthz.get("latency_budget"),
+            "debug_profile": capture,
             "profile": traced,
             "pref_to_input_topic": True, "up_served_after_s": up_s,
         }
     finally:
         layer.close()
+
+
+def profile_capture(port: int, paths: list[str]) -> dict:
+    """GET /debug/profile?seconds=2 while a burst runs: the dispatch
+    records it holds and the torch.profiler trace it wrote."""
+    got = {}
+
+    def capture():
+        got["response"] = http_get_full(port, "/debug/profile?seconds=2")
+
+    t = threading.Thread(target=capture)
+    t.start()
+    time.sleep(0.2)
+    rows = http_burst(port, paths)
+    t.join(timeout=120)
+    check("response" in got, "/debug/profile did not answer")
+    status, _headers, body = got["response"]
+    check(status == 200, f"/debug/profile answered {status}")
+    check(all(r[1] == 200 for r in rows), "non-200 during the capture")
+    meta = json.loads(body)["oryx"]
+    check(meta["dispatch_records"] >= 1,
+          f"the capture holds {meta['dispatch_records']} dispatch records")
+    trace = meta["torch_trace_path"]
+    check(trace is not None and Path(trace).is_file(),
+          f"no torch trace at {trace}")
+    with open(trace, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events
+                  if e.get("cat") == "kernel" and "topk" in e.get("name", ""))
+    check(kernels >= 1, "the torch trace holds no top-k kernel")
+    return {"window_seconds": meta["window_seconds"],
+            "dispatch_records": meta["dispatch_records"],
+            "by_kind": meta["by_kind"], "torch_trace_path": trace,
+            "trace_topk_kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the wedge watchdog over HTTP
+# ---------------------------------------------------------------------------
+
+WEDGE_FAULT_S = 5.0  # a dispatch stuck this long, past the 2 s timeout
+
+
+def wedge_phase(torch, np, path, users) -> dict:
+    """The serving layer again, with a batcher that declares a wedge after
+    2 s and probes every 1 s. A one-shot 5 s latency fault at
+    serving.device holds one dispatch: its request must get 503 with
+    Retry-After, /healthz must report device-down while the card is down,
+    /debug/flight must hold the health-degraded event, and once the probe
+    recovers the card a burst must be all 200."""
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import TopicProducer, get_broker, topic_admin
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.common.faults import get_injector
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    broker = f"mem://chip-smoke-wedge-{next(_BROKERS)}"
+    overlay = dict(app_overlay("als"))
+    overlay.update({
+        "oryx.update-topic.broker": broker,
+        "oryx.input-topic.broker": broker,
+        "oryx.serving.api.port": 0,
+        "oryx.monitoring.flight.dir": str(SMOKE_BUILD / "smoke-flight-wedge"),
+    })
+    config = load_config(overlay=overlay)
+    for w in ("input", "update"):
+        topic_admin.maybe_create(
+            broker, config.get_string(f"oryx.{w}-topic.message.topic"))
+    saved = TopKBatcher._shared
+    batcher = TopKBatcher(device_timeout=2.0, probe_interval=1.0)
+    TopKBatcher._shared = batcher
+    layer = ServingLayer(config)
+    stop = threading.Event()
+    seen: list = []
+    try:
+        layer.start()
+        port = layer.port
+        TopicProducer(get_broker(broker),
+                      config.get_string("oryx.update-topic.message.topic")
+                      ).send("MODEL-REF", path)
+        t0 = time.monotonic()
+        while http_get(port, "/ready")[0] != 200:
+            check(time.monotonic() - t0 < 600, "wedge phase: never ready")
+            time.sleep(0.05)
+        probe_paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}"
+                       for u in users[:8]]
+        for p in probe_paths:
+            check(http_get(port, p)[0] == 200, "wedge phase: warm-up failed")
+
+        def poll():
+            while not stop.is_set():
+                status, body = http_get(port, "/healthz")
+                seen.append((time.monotonic(), status,
+                             json.loads(body).get("degraded", [])))
+                time.sleep(0.05)
+
+        poller = threading.Thread(target=poll)
+        poller.start()
+        get_injector().arm("serving.device", kind="latency",
+                           latency_s=WEDGE_FAULT_S)
+        t_stuck = time.monotonic()
+        status, headers, body = http_get_full(port, probe_paths[0])
+        stuck_s = time.monotonic() - t_stuck
+        check(status == 503, f"the stuck request answered {status}: {body!r}")
+        retry_after = headers.get("Retry-After")
+        check(retry_after is not None, "the 503 carries no Retry-After")
+        check(batcher.device_failovers == 1,
+              f"{batcher.device_failovers} failovers")
+        deadline = time.monotonic() + 30
+        while batcher._device_down.is_set() or not any(
+                "device-down" in d for _t, _s, d in seen):
+            check(time.monotonic() < deadline, "the card never came back")
+            time.sleep(0.02)
+        recovered_s = time.monotonic() - t_stuck
+        stop.set()
+        poller.join(timeout=60)
+        down = [(t, s) for t, s, d in seen if "device-down" in d]
+        check(down and all(s == 503 for _t, s in down),
+              "/healthz never reported device-down with 503")
+        events = []
+        deadline = time.monotonic() + 30
+        while not any(e["kind"] == "health-degraded" for e in events):
+            check(time.monotonic() < deadline,
+                  "/debug/flight holds no health-degraded event")
+            status, body = http_get(port, "/debug/flight")
+            check(status == 200, f"/debug/flight answered {status}")
+            events = json.loads(body)["events"]
+            time.sleep(0.1)
+        wedge_events = [e.get("state") for e in events if e["kind"] == "wedge"]
+        check("wedged" in wedge_events, f"wedge events {wedge_events}")
+        rows = http_burst(port, [probe_paths[j % len(probe_paths)]
+                                 for j in range(256)])
+        non_200 = sum(1 for r in rows if r[1] != 200)
+        check(non_200 == 0, f"{non_200} non-200 answers after recovery")
+        return {
+            "phase": "wedge", "device_timeout_s": batcher.device_timeout,
+            "probe_interval_s": batcher.probe_interval,
+            "fault_latency_s": WEDGE_FAULT_S, "stuck_request_status": 503,
+            "retry_after": retry_after, "stuck_request_s": stuck_s,
+            "healthz_device_down_polls": len(down),
+            "device_down_s": max(t for t, _s in down) - min(t for t, _s in down),
+            "recovered_after_s": recovered_s,
+            "flight_events": sorted({e["kind"] for e in events}),
+            "wedge_events": wedge_events,
+            "failovers": batcher.device_failovers,
+            "burst_after_recovery": len(rows), "non_200_after": non_200,
+        }
+    finally:
+        stop.set()
+        get_injector().disarm()
+        layer.close()
+        batcher.close()
+        TopKBatcher._shared = saved
 
 
 # ---------------------------------------------------------------------------
@@ -1118,6 +1429,7 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
         "oryx.batch.storage.data-dir": f"file://{root / 'data'}",
         "oryx.batch.storage.model-dir": f"file://{root / 'model'}",
         "oryx.monitoring.quarantine.dir": f"file://{root / 'quarantine'}",
+        "oryx.monitoring.flight.dir": f"file://{root / 'flight'}",
         "oryx.serving.api.port": 0,
         "oryx.speed.streaming.generation-interval-sec": 3600,
         "oryx.batch.streaming.generation-interval-sec": 3600,
@@ -1337,6 +1649,155 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# A/B of the http phase: python3 chip_smoke.py --ab-parent DIR [--ab-order ..]
+# ---------------------------------------------------------------------------
+
+# run kinds, one letter each in --ab-order: (checkout, what differs)
+AB_VARIANTS = {
+    "c": ("change", None),
+    "p": ("parent", None),
+    # the batcher's per-dispatch accounting: peak lookup, idle-gap
+    # classification and records, dispatch records, the timeline
+    "a": ("change", "accounting"),
+    # the wedge watchdog's thread and the per-request device-span work
+    "w": ("change", "watchdog"),
+    # the burn-triggered profile capture (oryx.monitoring.perfattr.
+    # burn-capture.enabled = false)
+    "b": ("change", "burn-capture"),
+    # the interpreter's thread switch interval cut from 5 ms to 0.5 ms
+    # (sys.setswitchinterval): how long a thread that released the GIL
+    # waits to take it back from the server's busy threads
+    "s": ("change", "switch-interval"),
+}
+
+
+def ab_switch_off(what: str) -> None:
+    """Stub one part of this checkout's serving telemetry, in this process
+    only, before the shared batcher is built (a bisect run)."""
+    from oryx_tpu_torch.serving import batcher as B
+
+    def noop(*_a, **_k):
+        return None
+
+    if what == "accounting":
+        B._PERF = SimpleNamespace(set_peak=noop, record_dispatch=noop)
+        B._PA = SimpleNamespace(record_idle_gap=noop)
+        B.classify_idle_gap = lambda *_a, **_k: {}
+        B.TopKBatcher._peak_for_matrix = noop
+        init = B.TopKBatcher.__init__
+
+        def init_without_timeline(self, *a, **k):
+            init(self, *a, **k)
+            self.timeline = SimpleNamespace(append=noop)
+
+        B.TopKBatcher.__init__ = init_without_timeline
+    elif what == "watchdog":
+        B.TopKBatcher._ensure_watchdog = noop
+        B._Pending.finish_dev_span = noop
+
+
+def ab_run(root: Path, label: str, variant: str) -> None:
+    """One A/B run in this process, on the package of the checkout at
+    root: per score mode (exact, then quantized) a ServingLayer at the
+    smoke's full width and one timed burst of 2,048 GET /recommend from
+    the load generators. One JSON line per mode."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import oryx_tpu_torch
+
+    check(Path(oryx_tpu_torch.__file__).resolve().parents[1] == root,
+          f"imported {oryx_tpu_torch.__file__}, not the package under {root}")
+    from oryx_tpu_torch.ops import _build
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+    _build.build_all()
+    what = AB_VARIANTS[variant][1]
+    if what in ("accounting", "watchdog"):
+        ab_switch_off(what)
+    elif what == "switch-interval":
+        sys.setswitchinterval(0.0005)
+    extra = ({"oryx.monitoring.perfattr.burn-capture.enabled": False}
+             if what == "burn-capture" else {})
+    users = np.random.default_rng(SEED + 2).choice(
+        N_USERS, size=N_REQUESTS, replace=False)
+    paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in users]
+    with tempfile.TemporaryDirectory(prefix="oryx-ab-") as tmp:
+        path, _data = write_model(np, Path(tmp))
+        for mode in ("exact", "quantized"):
+            layer, config, *_rest = start_http_layer(mode, path, extra)
+            try:
+                batcher = TopKBatcher.shared()
+                d0, c0 = batcher.dispatches, batcher.coalesced
+                t_m0, t_wall = time.monotonic(), time.time()
+                rows = http_burst(layer.port, paths)
+                t_m1 = time.monotonic()
+                check(all(r[1] == 200 for r in rows), "non-200 in the burst")
+                dispatches = batcher.dispatches - d0
+                wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+                lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+                out = {
+                    "label": label, "variant": variant, "differs": what,
+                    "mode": mode, "qps": len(rows) / wall,
+                    "p50_ms": quantile(lat, 0.50),
+                    "p99_ms": quantile(lat, 0.99), "dispatches": dispatches,
+                    "mean_batch": (batcher.coalesced - c0) / dispatches,
+                    "mean_cycle_ms": wall / dispatches * 1e3,
+                }
+                timeline = getattr(batcher, "timeline", None)
+                if label == "change" and what != "accounting":
+                    # the dispatcher's pieces from its first launch to its
+                    # last results on the host, ms per dispatch
+                    tl = [x for x in timeline if t_m0 <= x[1] and x[2] <= t_m1]
+                    t_a = min(t0 for p, t0, _ in tl if p == "stage")
+                    t_b = max(t1 for p, _, t1 in tl if p == "sync")
+                    pieces = timeline_pieces(tl, t_a, t_b)
+                    out["piece_ms"] = {k: v / dispatches * 1e3
+                                       for k, v in pieces.items()}
+                    out["accounted_share"] = sum(pieces.values()) / (t_b - t_a)
+                    out["burn_captures"] = burn_captures(
+                        config.get_string("oryx.monitoring.flight.dir"),
+                        t_wall)
+                emit(out)
+            finally:
+                layer.close()
+        TopKBatcher.shared().close()
+
+
+def ab(parent: Path, order: str) -> int:
+    """Runs --ab-order's letters in sequence, each in a process of its own
+    (AB_VARIANTS), then prints the median qps of each variant and mode.
+    Each checkout builds its own kernels. Compare only within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parent
+    print(nvidia_smi_line(), flush=True)
+    runs: dict[str, list] = {}
+    for letter in order:
+        label, _what = AB_VARIANTS[letter]
+        root = parent.resolve() if label == "parent" else here
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--ab-run",
+             str(root), label, letter],
+            capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0,
+              f"run {letter} exited {out.returncode}:\n{out.stderr[-3000:]}")
+        for line in out.stdout.splitlines():
+            if line.startswith("{"):
+                row = json.loads(line)
+                runs.setdefault(f"{letter}/{row['mode']}", []).append(
+                    row["qps"])
+                print(line, flush=True)
+    emit({"medians": {k: {"median_qps": statistics.median(v), "runs": v}
+                      for k, v in runs.items()}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1386,7 +1847,11 @@ def main() -> int:
                                exact_rows)
             emit(served)
             serving["http-" + mode] = served
-    emit({"phase": "http-done", "seconds": time.monotonic() - t0})
+        emit({"phase": "http-done", "seconds": time.monotonic() - t0})
+        t0 = time.monotonic()
+        wedged = wedge_phase(torch, np, path, users)
+        wedged["seconds"] = time.monotonic() - t0
+        emit(wedged)
 
     t0 = time.monotonic()
     trained = train_phase(torch)
@@ -1491,5 +1956,28 @@ def main() -> int:
     return 0
 
 
+def cli(argv: list[str]) -> int:
+    """No arguments: the smoke. --ab-parent DIR: the http A/B against the
+    checkout unpacked at DIR (for example ``git archive <commit> | tar -x
+    -C build/ab_parent``), in --ab-order's sequence of AB_VARIANTS letters."""
+    if not argv:
+        return main()
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--ab-parent", type=Path)
+    ap.add_argument("--ab-order", default="pcabwwbacp")
+    ap.add_argument("--ab-run", nargs=3, metavar=("ROOT", "LABEL", "VARIANT"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if set(args.ab_order) - set(AB_VARIANTS):
+        ap.error(f"--ab-order takes the letters {''.join(AB_VARIANTS)}")
+    if args.ab_run:
+        root, label, variant = args.ab_run
+        ab_run(Path(root).resolve(), label, variant)
+        return 0
+    if args.ab_parent is None:
+        ap.error("--ab-parent DIR is required")
+    return ab(args.ab_parent, args.ab_order)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli(sys.argv[1:]))

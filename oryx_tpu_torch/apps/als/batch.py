@@ -14,8 +14,8 @@ Factors come back to the host as numpy float32 before the artifact is
 built, so the artifact is the JAX package's, byte for byte. Not ported:
 the training profile the JAX package stamps into the artifact
 (``_attach_quality_profile``, common/qualitystats.py, the quality plane of
-ROADMAP queue 1 item 5; a model without one reads as NaN drift in the JAX
-serving layer) and multi-device training (item 12).
+ROADMAP queue 1 item 4; a model without one reads as NaN drift in the JAX
+serving layer) and multi-device training (item 11).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class ALSUpdate(MLUpdate):
         )
         self.train_check_every = config.get_int("oryx.batch.train.check-every", 2)
         # factor sharding over that many devices (ops/als.py train_als
-        # shard_mesh; multi-device training is ROADMAP queue 1 item 12)
+        # shard_mesh; multi-device training is ROADMAP queue 1 item 11)
         self.train_shards = config.get_int("oryx.batch.train.shards", 1)
         self.max_drift_fraction = config.get_float(
             "oryx.batch.storage.incremental.max-drift-fraction", 0.5
@@ -481,7 +481,7 @@ class ALSUpdate(MLUpdate):
         2-shard config on a one-card host (or on the CPU) trains unsharded
         instead of failing the build; more than one card raises in
         train_als until multi-device training is ported (ROADMAP queue 1
-        item 12)."""
+        item 11)."""
         if self.train_shards <= 1 or self.device.type != "cuda":
             return None
         import torch

@@ -8,8 +8,11 @@ thread pool; here the whole Y store is one device matrix and top-N is one
 coalesced fused score + top-k dispatch (serving/batcher.py -> ops/topk.py),
 followed by an exact f32 re-rank of the candidates on the host.
 
-Not ported yet: LSH candidate sampling (sample-rate < 1), shadow quality
-sampling, sharded and chunked views, tracing and sync metrics.
+Every resync reports into the shared ``oryx_device_sync_*`` /
+``oryx_view_resync_total`` families (serving/viewsync.py) and, with tracing
+on, a ``view.resync`` span. Not ported yet: LSH candidate sampling
+(sample-rate < 1, ROADMAP queue 1 item 4), shadow quality sampling (item
+4), sharded and chunked views (item 11).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from oryx_tpu_torch.apps.als.common import ALSConfig
 from oryx_tpu_torch.apps.als.state import ALSState, apply_update_message
 from oryx_tpu_torch.common.classutil import load_instance_of
 from oryx_tpu_torch.common.config import Config
+from oryx_tpu_torch.common.tracing import get_tracer
 from oryx_tpu_torch.device import resolve_device
 from oryx_tpu_torch.ops.als import compute_updated_xu
 from oryx_tpu_torch.ops.topk import check_features
@@ -44,6 +48,11 @@ from oryx_tpu_torch.ops.transfer import (
 )
 from oryx_tpu_torch.serving.app import chain_future, configure_post_pool, post_pool
 from oryx_tpu_torch.serving.batcher import TopKBatcher
+from oryx_tpu_torch.serving.viewsync import (
+    extend_view_ids,
+    note_sync_bytes,
+    view_sync_metrics,
+)
 
 log = logging.getLogger(__name__)
 
@@ -118,21 +127,6 @@ class SyncConfig:
                 "not ported yet"
             )
         return SyncConfig(mode, headroom, frac)
-
-
-def _extend_ids(ids: list, delta) -> list | None:
-    """Extend a view's id list with the delta's appended rows, in row
-    order. Every index in [len(ids), delta.n) was dirty-logged by the write
-    that created it, so the delta carries its id; None (the caller then
-    full-resyncs) if that invariant ever breaks."""
-    if delta.n <= len(ids):
-        return ids
-    by_row = dict(zip((int(r) for r in delta.rows), delta.ids))
-    try:
-        return ids + [by_row[r] for r in range(len(ids), delta.n)]
-    except KeyError:
-        log.warning("delta missing ids for appended rows; full resync")
-        return None
 
 
 def _normalize_rows(a: torch.Tensor) -> torch.Tensor:
@@ -319,10 +313,20 @@ class ALSServingModel(ServingModel):
 
     def _note_resync(self, kind: str, rows: int, n_bytes: int,  # holds _sync_lock
                      seconds: float, version: int) -> None:
+        m_bytes, m_secs, m_total = view_sync_metrics()[:3]
+        note_sync_bytes(m_bytes, n_bytes, None)
+        m_secs.observe(seconds)
+        m_total.inc(kind=kind)
         self.last_resync = {
             "kind": kind, "rows": rows, "bytes": n_bytes,
             "seconds": seconds, "version": version,
         }
+        tr = get_tracer()
+        if tr.enabled:
+            tr.record_interval(
+                "view.resync", time.monotonic() - seconds,
+                kind=kind, rows=rows, bytes=n_bytes, version=version,
+            )
 
     def _request_resync(self) -> None:
         """Wake (starting if needed) the background resync thread. Queries
@@ -396,7 +400,7 @@ class ALSServingModel(ServingModel):
         if delta.rows.size == 0:
             return True  # raced an already-applied version
         rows, mat_rows = delta.rows, delta.mat
-        ids = _extend_ids(ids, delta)
+        ids = extend_view_ids(ids, delta)
         if ids is None:
             return False
         n_new = len(ids)
@@ -463,6 +467,7 @@ class ALSServingModel(ServingModel):
         k = min(n, how_many + len(exclude) + 8)
         fut = TopKBatcher.shared().submit_nowait(
             user_vector, k, y, recall=self.effective_recall(),
+            score_mode=self.score_mode,
         )
 
         def _post(result):

@@ -13,7 +13,7 @@ loaded. The fold-in solves run as one batch of triangular solves on the card
 interactions: the Cholesky factors, the strengths and the gathered vectors
 go up once per micro-batch, the new vectors come back for the messages.
 The JAX package's live input sketch (common/qualitystats.py) is the quality
-plane of ROADMAP queue 1 item 5 and is not fed here.
+plane of ROADMAP queue 1 item 4 and is not fed here.
 """
 
 from __future__ import annotations

@@ -198,8 +198,12 @@ class FaultInjector:
 
     def _count(self, site: str, kind: str) -> None:
         self.ensure_metrics().inc(site=site, kind=kind)
-        # the flight-recorder event of the JAX package waits for the
-        # flight recorder's port (ROADMAP queue 1, batcher telemetry)
+        from oryx_tpu_torch.common.flightrec import get_flightrec
+
+        # every fired fault is a flight event: a crash artifact that was
+        # CAUSED by an armed plan must say so, and a "crash" kind fires
+        # os._exit right after this — the disk line is the only witness
+        get_flightrec().record(kind="fault-injection", site=site, fault=kind)
 
 
 _injector = FaultInjector()

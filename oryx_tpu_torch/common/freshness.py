@@ -186,7 +186,7 @@ class ModelFreshness:
             for metric, value in quality.items():
                 self._g_quality.set(value, metric=metric)
         # the live-quality windows' generation boundary waits for the
-        # quality plane's port (ROADMAP queue 1, shadow quality sampling)
+        # quality plane's port (ROADMAP queue 1 item 4)
         tr = tracing.get_tracer()
         if tr.enabled:
             parent = tracing.parse_traceparent(stamp.get("traceparent"))
@@ -195,8 +195,14 @@ class ModelFreshness:
                 generation=gen or 0, lag_s=round(lag_s, 3),
             )
             tr.finish(span)
-        # the flight recorder's "generation" event waits for its port
-        # (ROADMAP queue 1, batcher telemetry)
+        from oryx_tpu_torch.common.flightrec import get_flightrec
+
+        # generation adoptions are the heartbeat of a replica's flight
+        # ring: a corpse harvested mid update-storm shows exactly which
+        # generation it last swapped in, and when
+        get_flightrec().record(
+            kind="generation", generation=gen, lag_s=round(lag_s, 3),
+        )
 
     # -- gauge callbacks ---------------------------------------------------
 

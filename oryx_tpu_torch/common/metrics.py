@@ -35,6 +35,15 @@ MICROBATCH_BUCKETS = (
 )
 
 
+def linear_buckets(start: float, width: float, count: int) -> tuple[float, ...]:
+    """`count` bucket upper bounds starting at `start`, `width` apart —
+    the right shape for bounded ratios (occupancy) and queue depths,
+    where log spacing would waste resolution at the interesting end."""
+    if count < 1:
+        raise ValueError("count must be >= 1")
+    return tuple(start + width * i for i in range(count))
+
+
 def exponential_buckets(
     start: float, factor: float, count: int
 ) -> tuple[float, ...]:
@@ -505,16 +514,19 @@ def get_registry() -> MetricsRegistry:
     return _default
 
 
+# One process can hold one torch profiler. maybe_profile and perfstats'
+# capture_profile (GET /debug/profile) both take this lock without
+# blocking, so a second profiler is refused instead of failing inside torch.
+PROFILER_LOCK = threading.Lock()
+
+
 @contextmanager
-def maybe_profile(profile_dir: str | None, name: str) -> Iterator[None]:
+def torch_trace(trace_dir: str, name: str) -> Iterator[str | None]:
     """``torch.profiler`` trace (host, and the card when there is one)
-    around a block when a profile dir is configured
-    (oryx.monitoring.profile-dir); no-op otherwise. The Chrome trace lands
-    in <dir>/<name>-<ts>.json for Perfetto. A profiler that fails to start
-    or to write is logged and never breaks the traced computation."""
-    if not profile_dir:
-        yield
-        return
+    around a block, written as a Chrome trace to <dir>/<name>-<ts>.json for
+    Perfetto. Yields that path, or None when the profiler did not start. A
+    profiler that fails to start or to write is logged and never breaks
+    the traced computation. The caller holds PROFILER_LOCK."""
     import logging
     import os
 
@@ -525,20 +537,42 @@ def maybe_profile(profile_dir: str | None, name: str) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
+    path = os.path.join(trace_dir, f"{name}-{int(time.time() * 1000)}.json")
     try:
         prof.__enter__()
     except Exception:  # noqa: BLE001 - e.g. a profiler already active
         log.warning("profiler did not start; %s runs untraced", name, exc_info=True)
-        yield
+        yield None
         return
     try:
-        yield
+        yield path
     finally:
         try:
             prof.__exit__(None, None, None)
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(
-                os.path.join(profile_dir, f"{name}-{int(time.time() * 1000)}.json")
-            )
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
         except Exception:  # noqa: BLE001 - the traced work already ran
             log.warning("profile trace for %s not written", name, exc_info=True)
+
+
+@contextmanager
+def maybe_profile(profile_dir: str | None, name: str) -> Iterator[None]:
+    """``torch_trace`` around a block when a profile dir is configured
+    (oryx.monitoring.profile-dir); no-op otherwise, and untraced (with a
+    warning) while another profiler holds PROFILER_LOCK."""
+    if not profile_dir:
+        yield
+        return
+    if not PROFILER_LOCK.acquire(blocking=False):
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "a profiler is already running; %s runs untraced", name
+        )
+        yield
+        return
+    try:
+        with torch_trace(profile_dir, name):
+            yield
+    finally:
+        PROFILER_LOCK.release()

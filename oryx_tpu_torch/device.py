@@ -34,10 +34,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 def reject_pod_config(config) -> None:
     """Raise ValueError when the config enables a multi-process pod
     (``oryx.compute.distributed.*``): multi-device training is ROADMAP
-    queue 1 item 12 (slice 3) and not ported yet."""
+    queue 1 item 11 and not ported yet."""
     g = lambda k, d: config.get(f"oryx.compute.distributed.{k}", d)  # noqa: E731
     if int(g("num-processes", 1) or 1) > 1 or g("coordinator-address", None):
         raise ValueError(
             "oryx.compute.distributed: multi-process pods are not ported to "
-            "the PyTorch port yet (ROADMAP queue 1 item 12)"
+            "the PyTorch port yet (ROADMAP queue 1 item 11)"
         )

@@ -10,7 +10,7 @@ update class is loaded reflectively from oryx.batch.update-class
 (BatchLayer.java:172-204).
 
 One process: the JAX package's pod members (agreed windows, a leader that
-alone publishes) are ROADMAP queue 1 item 12, and a pod config raises.
+alone publishes) are ROADMAP queue 1 item 11, and a pod config raises.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
 """Shared wedge-watchdog for the lambda tiers (the port's copy of
-oryx_tpu/layers/watchdog.py; the JAX package also writes each wedge
-transition to its flight recorder, which comes with ROADMAP queue 1 item 4).
+oryx_tpu/layers/watchdog.py).
 
 A device call inside a model build or fold-in can hang forever on a
 broken accelerator transport, and a hung C call cannot be cancelled
@@ -59,6 +58,14 @@ _WEDGED_HELP = (
 )
 
 
+def _record_wedge(label: str, state: str, **fields) -> None:
+    """Wedge TRANSITIONS go to the flight recorder: a harvested corpse
+    that wedged before dying says so in its last words."""
+    from oryx_tpu_torch.common.flightrec import get_flightrec
+
+    get_flightrec().record(kind="wedge", layer=label, state=state, **fields)
+
+
 def ensure_metrics() -> None:
     """Register the oryx_wedged gauge (empty) so serving-only processes
     expose the family from start — readiness dashboards need the name
@@ -113,16 +120,22 @@ def start_wedge_watchdog(
                 if layer.wedged:
                     layer.wedged = False
                     log.warning("%s un-wedged (work completed)", what)
+                    _record_wedge(label, "cleared")
                 continue
             if started != warned_for:
                 # new piece of work: its clock starts fresh
                 if layer.wedged:
                     layer.wedged = False
                     log.warning("%s un-wedged (new work started)", what)
+                    _record_wedge(label, "cleared")
                 warned_for, warned_at = started, 0.0
             elapsed = time.monotonic() - started
             if elapsed > limit and elapsed - warned_at > limit:
                 warned_at = elapsed
+                if not layer.wedged:
+                    # flight event on the TRANSITION only (the re-warn
+                    # cadence stays a log concern)
+                    _record_wedge(label, "wedged", elapsed_s=round(elapsed, 1))
                 layer.wedged = True
                 log.error(
                     "%s has been running %.0fs (> %.0fs limit) — likely a "

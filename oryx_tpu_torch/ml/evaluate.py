@@ -5,7 +5,7 @@ Parity targets: the reference's implicit-ALS mean per-user AUC with sampled
 negatives (app/oryx-app-mllib .../als/Evaluation.areaUnderCurve, :70-130),
 explicit RMSE (Evaluation.rmse:49-55), and classification accuracy. The
 clustering indices (Davies-Bouldin, Dunn, Silhouette, SSE) live with the
-k-means ops, which come with the k-means slice (ROADMAP queue 1 item 14).
+k-means ops, which come with the k-means slice (ROADMAP queue 1 item 7).
 Scoring is numpy on the host, over factors already brought back.
 """
 

@@ -47,7 +47,6 @@ def build_and_evaluate(
     measures each compute_dtype's quality on every run. ``timings``, when
     given, is the dict train_als fills (lists_s, train_s, train_flops) and
     also receives synth_s; the report carries the same dict."""
-    from oryx_tpu_torch.ml.evaluate import auc_mean_per_user
     from oryx_tpu_torch.ml.synth import synthesize_interactions
     from oryx_tpu_torch.ops.als import aggregate_interactions, train_als
 
@@ -86,6 +85,28 @@ def build_and_evaluate(
         np.isnan(x_np).any(axis=1).sum() + np.isnan(y_np).any(axis=1).sum()
     )
 
+    auc = holdout_auc(model, users, items, test_mask, rng, sample_users)
+    return BuildReport(
+        build_s=build_s,
+        agg_s=agg_s,
+        auc=float(auc),
+        nan_rows=nan_rows,
+        interactions=nnz,
+        timings=timings,
+        model=model,
+        data=data,
+    )
+
+
+def holdout_auc(
+    model, users, items, test_mask, rng, sample_users: int = 2000
+) -> float:
+    """Mean per-user AUC of ``model`` on the held-out interactions
+    (``test_mask``) of ``sample_users`` users drawn from ``rng``, with
+    each sampled user's training items excluded as negatives."""
+    from oryx_tpu_torch.ml.evaluate import auc_mean_per_user
+
+    tr = ~test_mask
     # AUC on a user sample (a full per-user python loop would dominate
     # the wall-clock; 2000 users gives a +/-0.005 CI on the mean)
     uid_to_row = {u: j for j, u in enumerate(model.user_ids)}
@@ -114,20 +135,11 @@ def build_and_evaluate(
         ur, ir = uid_to_row.get(str(u)), iid_to_row.get(str(i))
         if ur is not None and ir is not None:
             known.setdefault(ur, set()).add(ir)
-    auc = auc_mean_per_user(
+    return auc_mean_per_user(
         model.x,
         model.y,
         np.asarray(tu, dtype=np.int64),
         np.asarray(ti, dtype=np.int64),
         known,
     )
-    return BuildReport(
-        build_s=build_s,
-        agg_s=agg_s,
-        auc=float(auc),
-        nan_rows=nan_rows,
-        interactions=nnz,
-        timings=timings,
-        model=model,
-        data=data,
-    )
+

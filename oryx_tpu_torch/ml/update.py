@@ -14,7 +14,7 @@ via publish_additional_model_data (e.g. ALS factor rows).
 
 Single process, single card: the JAX package's pod branches (the
 process-group candidate search, the winner fetch across hosts) and its
-sub-mesh pool are ROADMAP queue 1 item 12. A config that enables a pod
+sub-mesh pool are ROADMAP queue 1 item 11. A config that enables a pod
 (``oryx.compute.distributed.*``) raises ValueError; with no mesh,
 candidates run in threads (``collect_in_parallel``) and share the card.
 """
@@ -203,7 +203,7 @@ class MLUpdate(BatchLayerUpdate):
 
     def training_mesh(self):
         """The mesh candidate builds run on: always None in the port, which
-        trains on one card (meshes are ROADMAP queue 1 item 12)."""
+        trains on one card (meshes are ROADMAP queue 1 item 11)."""
         return None
 
     # ---- the harness -----------------------------------------------------

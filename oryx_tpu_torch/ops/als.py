@@ -13,7 +13,7 @@ oryx_tpu/ops/als.py).
   Hu-Koren-Volinsky confidence weighting (c = 1 + alpha.r), explicit uses
   ALS-WR lambda.n_u regularization to match MLlib behavior. Single device
   only: the mesh, row-sharded and tensor-parallel trainers are ROADMAP
-  queue 1 item 12.
+  queue 1 item 11.
 - Input preprocessing mirrors ALSUpdate semantics (…/als/ALSUpdate.java:
   348-422): per-day exponential decay of old interactions, zero-threshold
   drop, NaN-as-delete aggregation for implicit (NaN-propagating sum),
@@ -569,42 +569,46 @@ def _compute_dtype(compute_dtype) -> torch.dtype:
         ) from None
 
 
-def _weighted_gram(yu, wt):
-    """``einsum("bpk,bp,bpl->bkl", yu, wt, yu)`` with f32 accumulation, in
-    the JAX package's pairwise order: the product ``wt * yu`` first,
-    carried in f32 (exact, both factors being values of the compute type),
-    then the contraction over p in one f32 product (TF32 off:
-    ``full_f32``). bf16 values go up to f32 first, exactly."""
-    y = yu.float()
-    return torch.bmm(y.mT, y * wt.float()[:, :, None])
+def _weighted_gram(yu, wt, acc=torch.float32):
+    """``einsum("bpk,bp,bpl->bkl", yu, wt, yu)`` with ``acc`` (f32)
+    accumulation, in the JAX package's pairwise order: the product
+    ``wt * yu`` first, carried in f32 (exact, both factors being values of
+    the compute type), then the contraction over p in one f32 product
+    (TF32 off: ``full_f32``). bf16 values go up to f32 first, exactly."""
+    y = yu.to(acc)
+    return torch.bmm(y.mT, y * wt.to(acc)[:, :, None])
 
 
-def _weighted_sum(yu, v):
-    """``einsum("bpk,bp->bk", yu, v)`` with f32 accumulation."""
-    return torch.bmm(v.float()[:, None, :], yu.float())[:, 0]
+def _weighted_sum(yu, v, acc=torch.float32):
+    """``einsum("bpk,bp->bk", yu, v)`` with ``acc`` (f32) accumulation."""
+    return torch.bmm(v.to(acc)[:, None, :], yu.to(acc))[:, 0]
 
 
-def _normal_equations(fc, gram_f, bidx, bval, bmask, lam, alpha, implicit):
+def _normal_equations(
+    fc, gram_f, bidx, bval, bmask, lam, alpha, implicit, acc=torch.float32
+):
     """A [B,K,K] and b [B,K] of one block of rows (the JAX package's
     ``one_block``): fc is the fixed side's factor table in the compute
-    type, bidx/bval/bmask the rows' padded lists."""
+    type, bidx/bval/bmask the rows' padded lists, ``acc`` the type the
+    products, the sums and ``gram_f`` are carried in (f32; f64 for the
+    rows that f32 cannot factor)."""
     k = fc.shape[1]
     cdt = fc.dtype
-    eye = torch.eye(k, dtype=torch.float32, device=fc.device)
-    yu = fc[bidx].float()  # [B,P,K] gather; bf16 values are exact in f32
+    eye = torch.eye(k, dtype=acc, device=fc.device)
+    yu = fc[bidx].to(acc)  # [B,P,K] gather; bf16 values are exact in f32
     if implicit:
         # Hu et al.: A = Y'Y + Yu' diag(alpha.r) Yu + lam.I
         #            b = Yu' ((1 + alpha.r) . p),  p = 1 for observed
         w = alpha * bval * bmask
-        a = gram_f[None] + _weighted_gram(yu, w.to(cdt)) + lam * eye[None]
+        a = gram_f[None] + _weighted_gram(yu, w.to(cdt), acc) + lam * eye[None]
         pref = (bval > 0).float() * bmask
-        b = _weighted_sum(yu, ((1.0 + w) * pref).to(cdt))
+        b = _weighted_sum(yu, ((1.0 + w) * pref).to(cdt), acc)
     else:
         # ALS-WR: A = Yu'Yu + lam.n_u.I ; b = Yu' r
-        a = _weighted_gram(yu, bmask.to(cdt))
-        n_u = bmask.sum(dim=1)
+        a = _weighted_gram(yu, bmask.to(cdt), acc)
+        n_u = bmask.sum(dim=1).to(acc)
         a = a + (lam * torch.clamp(n_u, min=1.0))[:, None, None] * eye[None]
-        b = _weighted_sum(yu, (bval * bmask).to(cdt))
+        b = _weighted_sum(yu, (bval * bmask).to(cdt), acc)
     return a, b
 
 
@@ -624,13 +628,23 @@ def _half_step(
     the [K,K] systems and the Cholesky solves are f32 either way. The
     caller keeps TF32 off (``full_f32``).
 
-    bf16-assembled normal equations can round a marginal system
-    indefinite. Rows whose factorization fails are solved again with
-    trace-scaled jitter (the ALS analogue of the reference solver's
-    singularity guard, ops/solver.py), and whatever still fails is zeroed:
-    a zero row re-enters the next half-sweep cleanly. The failed rows are
-    read back once per half-step, after every block is queued, and only
-    they are assembled again — one host synchronisation, not one a block.
+    f32-assembled normal equations can round a marginal system
+    indefinite: with lam = 0.01, the fixed side's gram grows past the
+    point where f32 resolves lam (an f32 ulp of a 1e8 entry is 8). Rows
+    whose factorization fails are assembled again and solved in f64, as
+    the reference's Solver.java solves in double (the JAX package, f32
+    only on the TPU, jitters them at once). What f64 cannot factor either
+    takes trace-scaled jitter (the JAX package's guard, the ALS analogue
+    of the reference solver's singularity check, ops/solver.py), and
+    whatever still fails is zeroed: a zero row re-enters the next
+    half-sweep cleanly. Jittering every f32 failure instead shrinks those
+    rows, the other side grows to make up for them, and more rows fail in
+    the next half-step: at the 25M shape some random inits end in tens of
+    thousands of jittered rows and a held-out AUC near 0.8 (PERF.md §6).
+    The failed rows are read back once per half-step, after every block
+    is queued, and only they are assembled again — one host
+    synchronisation, not one a block; and once more when some of them
+    failed, to pick out what f64 could not factor.
     """
     n, _ = idx.shape
     k = factors.shape[1]
@@ -645,15 +659,28 @@ def _half_step(
         )
         out[lo:hi], ok[lo:hi] = batched_spd_solve_ex(a, b)
     bad = torch.nonzero(~ok)[:, 0]
-    eye = torch.eye(k, dtype=torch.float32, device=factors.device)
-    for lo in range(0, bad.numel(), block):
-        rows = bad[lo : lo + block]
-        a, b = _normal_equations(
-            fc, gram_f, idx[rows], val[rows], mask[rows], lam, alpha, implicit
-        )
-        jitter = 0.02 * a.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / k + 1e-6
-        x, ok2 = batched_spd_solve_ex(a + jitter[:, None, None] * eye[None], b)
-        out[rows] = torch.where(ok2[:, None], x, torch.zeros_like(x))
+    if bad.numel():
+        f64 = factors.double()
+        gram64 = f64.T @ f64
+        for lo in range(0, bad.numel(), block):
+            rows = bad[lo : lo + block]
+            a, b = _normal_equations(
+                fc, gram64, idx[rows], val[rows], mask[rows], lam, alpha,
+                implicit, acc=torch.float64,
+            )
+            x, ok[rows] = batched_spd_solve_ex(a, b)
+            out[rows] = x.float()
+        bad = torch.nonzero(~ok)[:, 0]
+        eye = torch.eye(k, dtype=torch.float64, device=factors.device)
+        for lo in range(0, bad.numel(), block):
+            rows = bad[lo : lo + block]
+            a, b = _normal_equations(
+                fc, gram64, idx[rows], val[rows], mask[rows], lam, alpha,
+                implicit, acc=torch.float64,
+            )
+            jitter = 0.02 * a.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / k + 1e-6
+            x, ok2 = batched_spd_solve_ex(a + jitter[:, None, None] * eye[None], b)
+            out[rows] = torch.where(ok2[:, None], x, torch.zeros_like(x)).float()
     # rows with no interactions (all-pad) solve to ~0 already (b = 0)
     return torch.where(torch.isfinite(out).all(dim=1, keepdim=True), out, 0.0)
 
@@ -745,7 +772,7 @@ def _finish_model(x, y, n_u: int, n_i: int, data) -> ALSModelArrays:
 
 _NOT_PORTED_MESH = (
     "train_als: {} training is not ported to the PyTorch port yet "
-    "(ROADMAP queue 1 item 12, slice 3: multi-device)"
+    "(ROADMAP queue 1 item 11: multi-device)"
 )
 
 
@@ -782,8 +809,8 @@ def train_als(
 
     ``mesh`` and ``shard_mesh`` (data-parallel, tensor-parallel and
     row-sharded training) raise ValueError: multi-device training is
-    ROADMAP queue 1 item 12. The JAX package's perf-accounting hook
-    (``_record_train_dispatch``, common/perfstats.py) waits for item 4.
+    ROADMAP queue 1 item 11. Each build records one ``train`` dispatch into
+    common/perfstats.py (``_record_train_dispatch``).
     """
     if mesh is not None:
         raise ValueError(_NOT_PORTED_MESH.format("mesh"))
@@ -849,9 +876,45 @@ def train_als(
         compute_dtype=compute_dtype, timings=timings,
     )
     _sync(dev)
+    train_s = time.perf_counter() - t_exec
     if timings is not None:
-        timings["train_s"] = time.perf_counter() - t_exec
+        timings["train_s"] = train_s
+    _record_train_dispatch(
+        u_dev, i_dev, train_flops, train_s, n_u, n_i, features, dev
+    )
     return _finish_model(x.cpu().numpy(), y.cpu().numpy(), n_u, n_i, data)
+
+
+def _record_train_dispatch(
+    u_dev, i_dev, train_flops, train_s, n_u, n_i, features, device
+) -> None:
+    """Report one build's sweeps (FLOPs, approximate bytes: the uploaded
+    lists plus both factor tables, wall-clock) to the runtime perf
+    accounting — the train-side twin of the serving batcher's records.
+    The products run in f32 with TF32 off whatever ``compute_dtype``
+    rounds the inputs to, so MFU reads against the f32 peak. Lists hold
+    live rows only, so occupancy is 1. Never lets accounting break
+    training."""
+    try:
+        from oryx_tpu_torch.common.perfstats import get_perfstats
+        from oryx_tpu_torch.ops.flops import peak_flops_for_name
+
+        ps = get_perfstats()
+        if device.type == "cuda":
+            ps.ensure_peak("train", lambda: peak_flops_for_name(
+                torch.cuda.get_device_name(device), "float32"))
+        bytes_moved = float(
+            sum(t.nbytes for bucket in u_dev + i_dev for t in bucket)
+            + (n_u + n_i) * features * 4
+        )
+        ps.record_dispatch(
+            "train",
+            flops=train_flops, bytes_moved=bytes_moved, wall_s=train_s,
+            rows=n_u + n_i, padded_rows=n_u + n_i,
+            valid_rows=n_u + n_i, capacity_rows=n_u + n_i,
+        )
+    except Exception:  # accounting must not break builds
+        log.warning("train dispatch accounting failed", exc_info=True)
 
 
 def _sync(device) -> None:

@@ -26,6 +26,8 @@ counts its launches in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import threading
+import time
 
 import torch
 
@@ -89,12 +91,46 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+# monotonic start of the library's first load while it runs, else None
+_LOAD_STARTED: float | None = None
+
+
+def library_loaded() -> bool:
+    """Whether the kernel library is loaded in this process."""
+    return _LIB is not None
+
+
+def library_load_started() -> float | None:
+    """Monotonic start of the kernel library's first load while that load
+    is in flight (an nvcc build when the build directory is cold), else
+    None. The serving batcher's wedge watchdog grants compile grace while
+    it is set."""
+    return _LOAD_STARTED
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
+    """The kernel library, loaded (built first if need be) on first use.
+    That first load is this package's one cold compile: it is recorded
+    once as a serving compile and as a compile_stall idle gap
+    (common/perfattr.py)."""
+    global _LIB, _LOAD_STARTED
     if _LIB is None:
-        _LIB = bind(_build.load("topk_dot"))
+        with _LIB_LOCK:
+            if _LIB is None:
+                t0 = time.monotonic()
+                _LOAD_STARTED = t0
+                try:
+                    lib = bind(_build.load("topk_dot"))
+                finally:
+                    _LOAD_STARTED = None
+                _LIB = lib
+                seconds = time.monotonic() - t0
+                from oryx_tpu_torch.common.perfattr import get_perfattr
+
+                pa = get_perfattr()
+                pa.record_compile("serving", seconds)
+                pa.record_idle_gap("compile_stall", seconds)
     return _LIB
 
 

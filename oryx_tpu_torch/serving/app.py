@@ -281,20 +281,37 @@ class ServingApp:
         # tracing follows THIS app's config (last constructed wins — one
         # config per process); /healthz reports uptime + frontend fan-out
         configure_tracing(config)
-        # Planes of the JAX package's constructor left out until ported:
-        # perfstats (live MFU, occupancy): ROADMAP queue 1 item 4
-        # the artifact relay's distribution mode: queue 1 item 3
-        # the flight recorder: queue 1 item 4
-        # the SLO burn-rate gauges: queue 1 item 4
-        # the live quality plane: queue 1 item 5
-        # the model gate: queue 1 item 8
-        # the quarantine counters: queue 1 item 11 (the batch layer)
-        # the wedge watchdog's metrics: queue 1 item 4
-        # latency attribution (phase budgets) adopts the same config and
-        # pre-registers its families
+        # runtime perf accounting (live MFU/occupancy gauges, /debug/
+        # profile window knobs) adopts the same config and pre-registers
+        # its metric families
+        from oryx_tpu_torch.common.perfstats import configure_perfstats
+
+        configure_perfstats(config)
+        # latency attribution (phase budgets, idle-gap classification,
+        # compile-storm + burn-triggered capture knobs) adopts the same
+        # config and pre-registers its families
         from oryx_tpu_torch.common.perfattr import configure_perfattr
 
         configure_perfattr(config)
+        # the flight recorder (on-disk lifecycle ring + snapshot bundler,
+        # common/flightrec.py) and the config-declared SLO burn-rate
+        # gauges (common/slo.py) adopt the same config
+        from oryx_tpu_torch.common.flightrec import configure_flightrec
+        from oryx_tpu_torch.common.slo import ensure_serving_slos
+
+        configure_flightrec(config).record(
+            kind="process-start",
+            role="serving",
+            port=config.get_int("oryx.serving.api.port", 0),
+        )
+        ensure_serving_slos(config)
+        # Planes of the JAX package's constructor left out until ported:
+        # the artifact relay's distribution mode (ROADMAP queue 1 item 3),
+        # the live quality plane (item 4) and the model gate (item 5).
+
+        # healthz up->degraded edge detection (note_health_state): the
+        # transition automatically triggers a flight snapshot off-thread
+        self._last_health_degraded = False
         self.started_at = time.monotonic()
         self.loop_count = 1  # the async frontend overwrites with its fan-out
         reg = get_registry()
@@ -326,13 +343,16 @@ class ServingApp:
         # pre-register the robustness metric families — dashboards need
         # the zero baseline from process start, not a series that pops
         # into existence on the first retry/shed event
-        from oryx_tpu_torch.common import retry
+        from oryx_tpu_torch.common import quarantine, retry
         from oryx_tpu_torch.common.faults import configure_faults, get_injector
+        from oryx_tpu_torch.layers import watchdog
 
         retry.configure_retry(config)
         configure_faults(config)
         retry.ensure_metrics()
+        quarantine.ensure_metrics()
         get_injector().ensure_metrics()
+        watchdog.ensure_metrics()
         reg.counter(
             "oryx_serving_shed_total",
             "Requests deliberately shed with 503 + Retry-After because a "
@@ -439,10 +459,10 @@ class ServingApp:
 
     def degraded_reasons(self) -> list[str]:
         """Why this serving process is degraded right now (empty = fully
-        healthy). The /healthz readiness surface: the model past its
-        staleness bound. (The JAX package also reports a top-k failover to
-        host scoring, which the port does not have, and a tripped wedge
-        watchdog, ROADMAP queue 1 item 4.)
+        healthy). The /healthz readiness surface: model past its
+        staleness bound, the card down after a wedged top-k dispatch
+        (requests get 503 until a probe recovers it), or a co-resident
+        layer's wedge watchdog tripped.
 
         In a fleet, each reason carries this replica's identity
         (``model-stale@r1:8101``): a front aggregating N processes' probe
@@ -451,10 +471,38 @@ class ServingApp:
         reasons: list[str] = []
         if self.model_staleness() is not None:
             reasons.append("model-stale")
+        from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+        b = TopKBatcher._shared  # peek; never construct on a probe path
+        if b is not None and b._device_down.is_set():
+            reasons.append("device-down")
+        from oryx_tpu_torch.layers.watchdog import wedged_layers
+
+        reasons.extend(f"wedged:{name}" for name in wedged_layers())
         if self.replica_id:
             tag = f"@{self.replica_id}:{self.listen_port}"
             reasons = [r + tag for r in reasons]
         return reasons
+
+    def note_health_state(self, degraded: bool, reasons: list[str]) -> None:
+        """Edge detector behind the automatic flight snapshot: the FIRST
+        probe that sees up→degraded bundles the black box (events, recent
+        spans, dispatch ring, metrics, config fingerprint) on a one-shot
+        daemon thread — by the time a human looks, the evidence of HOW it
+        degraded is already on disk. Called from the (nonblocking)
+        healthz handler; the cheap path is two attribute touches."""
+        prev = self._last_health_degraded
+        self._last_health_degraded = degraded
+        if degraded and not prev:
+            from oryx_tpu_torch.common.flightrec import get_flightrec
+
+            # record + bundle both happen on the snapshot thread: this
+            # handler runs INLINE on the event loop, and the flight dir's
+            # disk may be exactly what is degrading
+            get_flightrec().snapshot_async(
+                "healthz-degraded",
+                event={"kind": "health-degraded", "reasons": reasons},
+            )
 
     def staleness_age(self) -> float | None:
         """Raw age in seconds of the served model's publish stamp (None

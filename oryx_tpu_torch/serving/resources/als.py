@@ -331,7 +331,7 @@ def register(app: ServingApp) -> None:
         known = st.known_items_snapshot()
         mb = (st.x.nbytes() + st.y.nbytes()) / 1e6
         # the JAX console's LSH sample rate and measured live recall wait
-        # for LSH and the quality plane (ROADMAP queue 1 item 5)
+        # for LSH and the quality plane (ROADMAP queue 1 item 4)
         return [
             ("users (X rows)", len(st.x)),
             ("items (Y rows)", len(st.y)),

@@ -1,18 +1,18 @@
 """Resources every app shares: /ready, /healthz, /ingest, /metrics,
-/console, /debug/traces (the port's copy of
+/console, /debug/traces, /debug/flight, /debug/profile (the port's copy of
 oryx_tpu/serving/resources/common.py).
 
 Mirrors the reference's Ready.java:33-46 (GET/HEAD 200-or-503 on model
 load fraction) and Ingest.java (bulk lines -> input topic, gzip-aware via
 the server's request decoding), plus the observability endpoints the
 reference never had: Prometheus /metrics, a /healthz liveness probe
-(distinct from /ready readiness), and the /debug/traces span lens
-(common/tracing.py).
+(distinct from /ready readiness), the /debug/traces span lens
+(common/tracing.py), the flight recorder's /debug/flight bundle
+(common/flightrec.py) and the /debug/profile capture window
+(common/perfstats.py, with a torch.profiler trace).
 
-Not registered until their planes are ported, so they answer 404:
-/control/model/approve and /control/model/rollback (the model gate,
-ROADMAP queue 1 item 8), /debug/flight (the flight recorder, item 4) and
-/debug/profile (perfstats, item 4).
+Not registered until the model gate is ported (ROADMAP queue 1 item 5), so
+they answer 404: /control/model/approve and /control/model/rollback.
 """
 
 from __future__ import annotations
@@ -107,8 +107,9 @@ def register(app: ServingApp) -> None:
         so probes choose their semantics by method.
 
         Reports the fields whose sources are ported; the JAX package's
-        shards, mfu, occupancy, quality, slo_errors, slo_burn and
-        model_gate fields wait for theirs (ROADMAP queue 1)."""
+        quality and model_gate fields wait for the quality plane and the
+        model gate (ROADMAP queue 1 items 4 and 5), and its shards field
+        for sharded views (item 11)."""
         from oryx_tpu_torch.common.freshness import model_freshness
 
         degraded = a.degraded_reasons()
@@ -135,13 +136,47 @@ def register(app: ServingApp) -> None:
             except Exception:  # noqa: BLE001 - a probe never 500s on lag
                 pass
         try:
+            import math
+
+            from oryx_tpu_torch.common.perfstats import get_perfstats
+
+            mfu = get_perfstats().mfu("serving")
+            if not math.isnan(mfu):
+                body["mfu"] = round(mfu, 6)
+            # rolling-window dispatch occupancy (1.0 here by construction:
+            # views hold live rows and no query row is padded)
+            occ, n_disp = get_perfstats().window_occupancy("serving")
+            if occ is not None:
+                body["occupancy"] = {
+                    "mean": round(occ, 4), "dispatches": n_disp,
+                }
+        except Exception:  # noqa: BLE001 - perf accounting is optional
+            pass
+        try:
+            from oryx_tpu_torch.common import slo
+
+            # SLO source reads that raised in THIS process (slo -> last
+            # error), so broken burn math is visible
+            errs = slo.sample_errors()
+            if errs:
+                body["slo_errors"] = errs
+            # per-SLO fast/slow burn rates
+            burn = slo.burn_snapshot()
+            if burn:
+                body["slo_burn"] = burn
+        except Exception:  # noqa: BLE001 - a probe never 500s on slo state
+            pass
+        try:
             from oryx_tpu_torch.common.perfattr import get_perfattr
 
             # live latency budget: per-phase p50/p99/share over the
-            # rolling window
+            # rolling window plus ranked idle-gap causes
             body["latency_budget"] = get_perfattr().healthz_section()
         except Exception:  # noqa: BLE001 - a probe never 500s on perfattr
             pass
+        # up->degraded edge: the first degraded probe snapshots the
+        # flight recorder's black box off-thread (app.py note_health_state)
+        a.note_health_state(bool(degraded), degraded)
         return (503 if degraded else 200), body
 
     @app.route("HEAD", "/healthz", nonblocking=True)
@@ -184,12 +219,78 @@ def register(app: ServingApp) -> None:
             )
         return RawResponse(200, body.encode("utf-8"), "application/json")
 
+    # NOT nonblocking: bundling renders the whole metrics page and writes
+    # the artifact to disk — worker-thread work, never an event loop's
+    @app.route("GET", "/debug/flight")
+    def debug_flight(a: ServingApp, req: Request):
+        """On-demand flight-recorder snapshot (common/flightrec.py): the
+        recent lifecycle-event ring, finished tracing spans, the
+        perfstats dispatch ring, a /metrics snapshot, and the config
+        fingerprint as ONE downloadable artifact — the same bundle a
+        healthz up→degraded transition writes automatically. 403 when the
+        recorder is disabled (oryx.monitoring.flight.enabled = false)."""
+        from oryx_tpu_torch.common.flightrec import get_flightrec
+
+        rec = get_flightrec()
+        if not rec.enabled:
+            raise OryxServingException(
+                403, "flight recorder disabled (oryx.monitoring.flight.enabled)"
+            )
+        bundle, path = rec.snapshot("debug-endpoint")
+        if path:
+            req.response_headers.append((
+                "Content-Disposition",
+                f'attachment; filename="{path.rsplit("/", 1)[-1]}"',
+            ))
+        return RawResponse(
+            200, json.dumps(bundle, default=str).encode("utf-8"),
+            "application/json",
+        )
+
+    # NOT nonblocking: the handler sleeps for the capture window — that
+    # must park a worker thread, never an event loop
+    @app.route("GET", "/debug/profile")
+    def debug_profile(a: ServingApp, req: Request):
+        """On-demand performance capture: blocks for ?seconds=N (clamped
+        to oryx.monitoring.profile.max-seconds) recording every device
+        dispatch's cost (common/perfstats.py) — plus finished tracing
+        spans, and a torch.profiler trace of the host and the card into
+        oryx.monitoring.profile.dir when configured — and returns the
+        window as a downloadable Perfetto-loadable Chrome trace-event
+        artifact with an `oryx` summary block (per-kind FLOPs, bytes,
+        occupancy, window MFU, the torch trace's path). 403 until
+        oryx.monitoring.profile.enabled = true; 409 while another capture
+        holds the (process-global) profiler."""
+        from oryx_tpu_torch.common.perfstats import get_perfstats
+
+        ps = get_perfstats()
+        if not ps.profile_enabled:
+            raise OryxServingException(
+                403, "profiling disabled (set oryx.monitoring.profile.enabled)"
+            )
+        try:
+            seconds = float(req.q1("seconds", "1") or 1.0)
+        except ValueError:
+            raise OryxServingException(400, "bad seconds")
+        seconds = max(0.0, min(seconds, ps.profile_max_seconds))
+        try:
+            artifact = ps.capture_profile(seconds)
+        except RuntimeError as e:
+            raise OryxServingException(409, str(e))
+        req.response_headers.append((
+            "Content-Disposition",
+            f'attachment; filename="oryx-profile-{int(time.time())}.json"',
+        ))
+        return RawResponse(
+            200, json.dumps(artifact).encode("utf-8"), "application/json"
+        )
+
     if app.config.get_bool("oryx.monitoring.metrics", True):
 
         from oryx_tpu_torch.serving.batcher import TopKBatcher
 
-        # live callback gauges: scrapes read the batcher's counters
-        # without per-scrape mutation
+        # live callback gauges: scrapes read the batcher's counters (and
+        # the card-down state after a wedge) without per-scrape mutation
         TopKBatcher.shared().register_gauges()
 
         @app.route("GET", "/metrics")

@@ -233,6 +233,36 @@ def test_half_step_zeroes_a_singular_row_in_both(dtype):
     np.testing.assert_allclose(got[keep], want[keep], rtol=2e-3, atol=1e-4)
 
 
+def test_half_step_solves_rows_f32_cannot_factor_in_f64():
+    """Two nearly collinear factor columns at scale 1e4 put lam = 0.01
+    below what an f32 gram resolves, so some rows' f32 Cholesky fails.
+    Those rows come out as the f64 solution of the same normal equations
+    (numpy, float64; rtol 1e-3 of the row's largest entry), where the JAX
+    package jitters them (2% of the mean diagonal) and lands far off."""
+    rng = np.random.default_rng(5)
+    m, k, n, p = 400, 4, 16, 12
+    base = rng.standard_normal(m) * 1e4
+    f = np.stack([base, base + rng.standard_normal(m) * 1e-2,
+                  rng.standard_normal(m), rng.standard_normal(m)], 1).astype(np.float32)
+    idx = rng.integers(0, m, (n, p)).astype(np.int32)
+    mask = np.ones((n, p), np.float32)
+    val = rng.integers(1, 5, (n, p)).astype(np.float32)
+    g = f.T @ f
+    a, b = T._normal_equations(*(torch.from_numpy(v) for v in (f, g, idx, val, mask)),
+                               0.01, 1.0, True)
+    failed = ~T.batched_spd_solve_ex(a, b)[1].numpy()
+    assert 0 < failed.sum() < n
+    got, jax_jittered = _both_half_steps(f, idx, val, mask, 0.01, True, "float32", block=8)
+    f64 = f.astype(np.float64)
+    for r in np.nonzero(failed)[0]:
+        yu, w = f64[idx[r]], val[r].astype(np.float64)
+        want = np.linalg.solve(f64.T @ f64 + yu.T @ (w[:, None] * yu) + 0.01 * np.eye(k),
+                               yu.T @ (1.0 + w))
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got[r], want, rtol=0, atol=1e-3 * scale)
+        assert np.abs(jax_jittered[r] - want).max() > 0.1 * scale
+
+
 def test_cholesky_ex_failure_is_read_from_info():
     """torch reports a failed factorization through info and leaves a
     finite partial factor; the guard must not read finiteness alone."""
@@ -305,7 +335,7 @@ def test_train_als_seeded_init_is_deterministic():
 @pytest.mark.parametrize("arg", ["mesh", "shard_mesh"])
 def test_multi_device_training_is_not_ported(arg):
     dt, _, _ = _train_data()
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 11"):
         T.train_als(dt, device="cpu", **{arg: object()})
 
 
@@ -461,3 +491,78 @@ def test_build_and_evaluate_on_the_cpu():
     assert rep.nan_rows == 0 and rep.auc > 0.85
     assert rep.timings["train_s"] > 0 and rep.timings["synth_s"] > 0
     assert rep.model.x.shape == (rep.data.n_users, 10)
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+@pytest.mark.parametrize("tol", [0.2, 0.05])
+def test_train_als_warm_matches_with_the_same_resume_y(implicit, tol):
+    """The incremental generation's trainer: the same data and the same
+    resume_y into both packages' train_als_warm run the same number of
+    sweeps (the early stop reads the same prediction change) and give
+    factors within the train_als tolerance above."""
+    dt, dj, r = _train_data(21)
+    y0 = (r.standard_normal((dj.n_items, 8)) * 0.1
+          + 1 / np.sqrt(8)).astype(np.float32)
+    kw = dict(features=8, lam=0.01, alpha=1.0, iterations=10,
+              implicit=implicit, resume_y=y0, tol=tol, min_iterations=2,
+              check_every=2)
+    got, got_sweeps = T.train_als_warm(dt, device="cpu", **kw)
+    want, want_sweeps = J.train_als_warm(dj, **kw)
+    assert got_sweeps == want_sweeps
+    assert got.user_ids == want.user_ids and got.item_ids == want.item_ids
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-3,
+                               atol=1e-3 * np.abs(want.x).max())
+    np.testing.assert_allclose(got.y, want.y, rtol=1e-3,
+                               atol=1e-3 * np.abs(want.y).max())
+
+
+def test_checkpointed_resume_matches_the_jax_package(tmp_path, monkeypatch):
+    """A checkpoint the JAX package wrote mid-build (killed after its first
+    chunk) resumes in the port as in the JAX package: the same format and
+    fingerprint, so the port picks up at sweep 2 from the JAX package's Y
+    and both end within the train_als tolerance; each package's resume
+    equals its own uninterrupted build exactly (the JAX package's own
+    test, and test_checkpointed_resume_equals_uninterrupted above)."""
+    import shutil
+
+    dt, dj, _ = _train_data(12)
+    kw = dict(features=8, iterations=6, lam=0.01, alpha=1.0)
+    real, calls = J.train_als, []
+
+    def killed_after_first_chunk(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise KeyboardInterrupt("killed")
+        return real(*a, **k)
+
+    ck = tmp_path / "jax-ck"
+    monkeypatch.setattr(J, "train_als", killed_after_first_chunk)
+    with pytest.raises(KeyboardInterrupt):
+        J.train_als_checkpointed(dj, ck, checkpoint_every=2, **kw)
+    monkeypatch.setattr(J, "train_als", real)
+    with np.load(ck / "als-train.ckpt.npz") as z:
+        assert int(z["done"]) == 2
+        y_ck = z["y"].copy()
+    port_ck = tmp_path / "port-ck"
+    shutil.copytree(ck, port_ck)
+
+    seen = []
+    port_real = T.train_als
+
+    def spy(*a, **k):
+        seen.append((k["iterations"], k["resume_y"]))
+        return port_real(*a, **k)
+
+    monkeypatch.setattr(T, "train_als", spy)
+    got = T.train_als_checkpointed(dt, port_ck, checkpoint_every=2,
+                                   device="cpu", **kw)
+    want = J.train_als_checkpointed(dj, ck, checkpoint_every=2, **kw)
+    # the port resumed: 4 sweeps left in 2 chunks, the first from the
+    # JAX package's checkpointed Y
+    assert [n for n, _ in seen] == [2, 2]
+    np.testing.assert_array_equal(seen[0][1], y_ck)
+    assert not (port_ck / "als-train.ckpt.npz").exists()
+    np.testing.assert_allclose(got.x, want.x, rtol=1e-3,
+                               atol=1e-3 * np.abs(want.x).max())
+    np.testing.assert_allclose(got.y, want.y, rtol=1e-3,
+                               atol=1e-3 * np.abs(want.y).max())

@@ -426,7 +426,9 @@ def test_serving_layer_on_the_card_answers_like_the_cpu(cuda_device, tmp_path):
         overlay.update({"oryx.input-topic.broker": bus,
                         "oryx.update-topic.broker": bus,
                         "oryx.serving.api.port": 0,
-                        "oryx.serving.api.loops": 2})
+                        "oryx.serving.api.loops": 2,
+                        "oryx.monitoring.flight.dir":
+                            str(tmp_path / f"flight-{where}")})
         config = load_config(overlay=overlay)
         manager = (None if where == "card"
                    else ALSServingModelManager(config, device="cpu"))
@@ -529,8 +531,9 @@ def test_bf16_normal_equations_use_f32_outputs(cuda_device):
 def test_indefinite_system_retries_and_never_nans(cuda_device):
     """One row of the batch cannot be factored: cholesky_ex reports it in
     info (on the card its partial factor holds NaN, on the CPU it is
-    finite: the guard reads both), the jittered retry runs for that row
-    only, a row that still fails comes out zero, and nothing is NaN."""
+    finite: the guard reads both), the f64 solve and then the jittered one
+    run for that row only, a row that still fails comes out zero, and
+    nothing is NaN."""
     from oryx_tpu_torch.ops import als as A
     from oryx_tpu_torch.ops.vector import full_f32, gram
 
@@ -558,7 +561,8 @@ def test_indefinite_system_retries_and_never_nans(cuda_device):
             )
     finally:
         A.batched_spd_solve_ex = real
-    assert calls == [32, 32, 1]  # two blocks, then the one failed row
+    # two blocks, then the NaN row in f64, then jittered
+    assert calls == [32, 32, 1, 1]
     x = x.cpu().numpy()
     assert np.isfinite(x).all()
     assert not x[5].any()
@@ -598,3 +602,55 @@ def test_train_als_on_the_card_matches_the_cpu(cuda_device):
     card = train_als(data, device="cuda", **kw)
     for a, b in ((card.x, cpu.x), (card.y, cpu.y)):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_wedge_probe_and_dispatch_records_on_the_card(cuda_device, dtype,
+                                                      monkeypatch):
+    """The batcher on a card view: a wedged first dispatch fails with
+    DeviceWedged, the probe (a one-row dispatch waited on by a CUDA event)
+    brings the card back, and each resolved group records a dispatch with
+    the peak of the view's type (int8 for a quantized view)."""
+    import threading
+    import time
+
+    from oryx_tpu_torch.common.perfstats import get_perfstats
+    from oryx_tpu_torch.ops.flops import peak_flops_for_name
+    from oryx_tpu_torch.ops.transfer import QuantizedMatrix
+    from oryx_tpu_torch.serving import batcher as B
+
+    xs, y, scales = _inputs(dtype, cuda_device, n=20000, f=50, b=1)
+    if dtype == torch.int8:
+        y = QuantizedMatrix(y, scales)
+    real = B.topk_dot_batch
+    release, calls = threading.Event(), []
+
+    def wedge_first(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            release.wait(30)
+        return real(*a, **k)
+
+    monkeypatch.setattr(B, "topk_dot_batch", wedge_first)
+    b = B.TopKBatcher(device_timeout=0.5, probe_interval=0.1)
+    vec = np.random.default_rng(1).standard_normal(50).astype(np.float32)
+    try:
+        with pytest.raises(B.DeviceWedged):
+            b.submit(vec, 10, y)
+        release.set()
+        deadline = time.monotonic() + 30
+        while b._device_down.is_set() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert not b._device_down.is_set()
+        t_mark = time.monotonic()
+        _vals, idx = b.submit(vec, 10, y, score_mode="exact")
+        assert len(idx) == 10
+    finally:
+        release.set()
+        b.close()
+    rec = [r for r in get_perfstats().records_since(t_mark)
+           if r.kind == "serving"][-1]
+    assert rec.occupancy == 1.0 and rec.flops == 2.0 * 20000 * 50
+    want = peak_flops_for_name(torch.cuda.get_device_name(0),
+                               "int8" if dtype == torch.int8 else "bfloat16")
+    assert get_perfstats().peak_for("serving") == want

@@ -235,7 +235,7 @@ class _Model:
         return 1.0
 
 
-def _app(pkg):
+def _app(pkg, tmp_path):
     app_mod = mod(pkg, "serving.app")
     api = mod(pkg, "api")
     config = mod(pkg, "common.config")
@@ -250,6 +250,7 @@ def _app(pkg):
     cfg = config.load_config(overlay={
         "oryx.serving.application-resources": [],
         "oryx.serving.api.context-path": "/ctx",
+        "oryx.monitoring.flight.dir": str(tmp_path / "flight"),
     })
     app = app_mod.ServingApp(cfg, Manager(cfg))
 
@@ -282,8 +283,8 @@ def _app(pkg):
     ("GET", "/ctx/other/path", "application/json",
      (503, b'{"status": 503, "error": "busy"}', "application/json")),
 ])
-def test_routing_and_rendering(pkg, method, path, accept, want):
-    app_mod, app = _app(pkg)
+def test_routing_and_rendering(pkg, method, path, accept, want, tmp_path):
+    app_mod, app = _app(pkg, tmp_path)
     req = app_mod.Request(method=method, path=path, params={}, query={},
                           body=b"", headers={"accept": accept})
     assert app.dispatch(req) == want
@@ -292,8 +293,8 @@ def test_routing_and_rendering(pkg, method, path, accept, want):
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-def test_fast_segments(pkg):
-    _app_mod, app = _app(pkg)
+def test_fast_segments(pkg, tmp_path):
+    _app_mod, app = _app(pkg, tmp_path)
     # a blocking param-first route makes every path a worker-pool path
     assert not app.is_fast("/ctx/items/x")
     assert app._exact_routes[("GET", "/items/all")].handler.__name__ == \
@@ -301,10 +302,10 @@ def test_fast_segments(pkg):
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-def test_deferred_results_render_at_completion(pkg):
+def test_deferred_results_render_at_completion(pkg, tmp_path):
     from concurrent.futures import Future
 
-    app_mod, app = _app(pkg)
+    app_mod, app = _app(pkg, tmp_path)
 
     @app.route("GET", "/later/{id}")
     def later(a, req):
@@ -360,7 +361,7 @@ def _h2_responses(sock, hpack, want: set[int]) -> dict[int, tuple]:
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-def test_h2_streams_and_h2c_upgrade(pkg):
+def test_h2_streams_and_h2c_upgrade(pkg, tmp_path):
     """Prior knowledge: two GET streams opened before either is read, and a
     POST whose body rides a DATA frame; then an h2c upgrade, whose HTTP/1.1
     request becomes stream 1. Each answer equals the route's rendering."""
@@ -368,7 +369,7 @@ def test_h2_streams_and_h2c_upgrade(pkg):
 
     hpack = mod(pkg, "serving.hpack")
     aserver = mod(pkg, "serving.aserver")
-    app_mod, app = _app(pkg)
+    app_mod, app = _app(pkg, tmp_path)
 
     @app.route("POST", "/echo")
     def echo(a, req):

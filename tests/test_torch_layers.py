@@ -552,9 +552,9 @@ def test_incremental_disabled_by_config(pkg, tmp_path):
 def test_port_rejects_a_pod_config(tmp_path):
     ns = _namespace("oryx_tpu_torch")
     cfg = _cfg(ns, tmp_path, "pod", **{"oryx.compute.distributed.num-processes": 2})
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 11"):
         ns.BatchLayer(cfg, update=_recording_update(ns))
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 11"):
         ns.als_update(cfg)
 
 

@@ -123,9 +123,10 @@ def model_ref(tmp_path_factory) -> str:
     return str(path)
 
 
-def _overlay(spi_overlay: dict, bus: str, frontend: str) -> dict:
+def _overlay(spi_overlay: dict, bus: str, frontend: str, flight) -> dict:
     overlay = dict(spi_overlay)
     overlay.update({
+        "oryx.monitoring.flight.dir": str(flight),
         "oryx.input-topic.broker": bus,
         "oryx.update-topic.broker": bus,
         "oryx.serving.api.port": 0,
@@ -187,7 +188,7 @@ def _input_lines(broker) -> list[tuple[str | None, str]]:
 
 
 @pytest.fixture(scope="module", params=FRONTENDS)
-def served(request, model_ref):
+def served(request, model_ref, tmp_path_factory):
     """Both packages' layers under one frontend, driven through both
     phases; yields the recorded responses and the input topics."""
     frontend = request.param
@@ -195,9 +196,11 @@ def served(request, model_ref):
     jbroker, pbroker = jax_get_broker(jbus), get_broker(pbus)
     _create_topics(jbroker)
     _create_topics(pbroker)
+    flight = tmp_path_factory.mktemp(f"flight-{frontend}")
     jcfg = jax_load_config(overlay=_overlay(jax_app_overlay("als"), jbus,
-                                            frontend))
-    pcfg = load_config(overlay=_overlay(app_overlay("als"), pbus, frontend))
+                                            frontend, flight / "jax"))
+    pcfg = load_config(overlay=_overlay(app_overlay("als"), pbus, frontend,
+                                        flight / "port"))
     jlayer = JaxServingLayer(jcfg)
     player = ServingLayer(
         pcfg, model_manager=ALSServingModelManager(pcfg, device="cpu"))
