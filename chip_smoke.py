@@ -85,7 +85,34 @@ Phases, each printing JSON lines:
    50,000 more events and a generation in a fresh batch layer that must
    take the incremental path (warm start from the model dir); serving
    must then serve the new generation. The fused top-k kernels' launches
-   in the serving leg are counted as in phases 3 and 4.
+   in the serving leg are counted as in phases 3 and 4;
+7. kmeans (torch ops on the card, no hand kernel): the port's
+   build_and_evaluate_kmeans at the bench's shape (5M planted points x 20
+   dims, k = 100, 10 Lloyd iterations, k-means|| init): build seconds
+   (upload, init and Lloyd apart), SSE ratio against the planted centers
+   (<= 1.05), silhouette (>= 0.5), peak card memory; one Lloyd iteration
+   from the built centers over 200,000 of the points against float64
+   numpy (1e-4 of the largest center entry; a point whose two nearest
+   centers tie within 1e-5 of |x|^2 + max |c|^2 goes where the card put
+   it); one more build traced by torch.profiler (the card's busy share,
+   device time by op). Then the kmeans app on a file:// bus: a
+   KMeansUpdate generation over 200,000 of the points through
+   BatchLayer, the serving layer to /ready, 256 GET /assign against the
+   float64 nearest published center, and 1,000 speed events around one
+   center whose UP serving must apply (the center moves to
+   ClusterInfo.update's value);
+8. rdf (torch ops on the card): build_and_evaluate_rdf at UCI-covertype
+   shape (581,012 x 54, 7 classes, 10% label noise, 10% held out; 10
+   trees, depth 10, 32 bins, 14 features a node, entropy): build seconds
+   (binning and growth apart), held-out accuracy (>= 0.88), peak card
+   memory; route_binned_device on the card against the host's
+   route_binned over the held-out rows (identical leaves); one more
+   growth traced by torch.profiler. Then the rdf app on a file:// bus:
+   an RDFUpdate generation over 100,000 covertype-width lines, the
+   serving layer to /ready, 256 GET /predict and 256 GET
+   /classificationDistribution against the host routing of the published
+   forest (labels equal, probabilities within 1e-6), and 1,000 labeled
+   speed events whose UP counts serving must add to its leaves.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. With --ab-parent DIR the script runs the
@@ -1650,6 +1677,462 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 7: k-means (the batch build at the bench's shape, then the app)
+# ---------------------------------------------------------------------------
+
+KMEANS_SHAPE = {"n_points": 5_000_000, "dims": 20, "k": 100, "iterations": 10}
+KMEANS_REPLACES = "oryx_tpu/ops/kmeans.py:61"  # lloyd_jit: torch ops, no Pallas kernel
+SSE_RATIO_MAX, SILHOUETTE_MIN = 1.05, 0.5  # tests/test_quality_gate.py:84-86
+LLOYD_CHECK_POINTS = 200_000
+LLOYD_RTOL = 1e-4  # of the largest center entry, against float64
+NEAR_TIE_D2 = 1e-5  # of |x|^2 + max |c|^2: the f32 expansion's roundoff
+KMEANS_APP_POINTS = 200_000
+APP_REQUESTS = 256
+APP_SPEED_EVENTS = 1_000
+
+
+def build_profile(torch, fn) -> dict:
+    """One run of fn traced by torch.profiler (host ops and the card):
+    the card's busy share of the traced wall time, kernel launches, and
+    the card's time by the aten op that launched it (self device time)."""
+    from torch.autograd import DeviceType
+
+    acts = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    device_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    ops = sorted((ev for ev in events if ev.device_type == DeviceType.CPU
+                  and ev.self_device_time_total > 0),
+                 key=lambda ev: -ev.self_device_time_total)
+    return {
+        "traced_wall_s": wall_s, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall_s * 1e3),
+        "kernel_launches": sum(ev.count for ev in kernels),
+        "by_op": {ev.key: {"device_ms": ev.self_device_time_total / 1e3,
+                           "calls": ev.count} for ev in ops[:12]},
+    }
+
+
+def app_config(root: Path, app: str, extra: dict):
+    """A file:// bus under root with the app's classes (apps/spi.py)."""
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import topic_admin
+    from oryx_tpu_torch.common.config import load_config
+
+    bus = f"file://{root / 'bus'}"
+    overlay = dict(app_overlay(app))
+    overlay.update({
+        "oryx.id": f"smoke-{app}",
+        "oryx.input-topic.broker": bus, "oryx.update-topic.broker": bus,
+        "oryx.batch.storage.data-dir": f"file://{root / 'data'}",
+        "oryx.batch.storage.model-dir": f"file://{root / 'model'}",
+        "oryx.monitoring.quarantine.dir": f"file://{root / 'quarantine'}",
+        "oryx.monitoring.flight.dir": f"file://{root / 'flight'}",
+        "oryx.serving.api.port": 0,
+        "oryx.speed.streaming.generation-interval-sec": 3600,
+        "oryx.batch.streaming.generation-interval-sec": 3600,
+    })
+    overlay.update(extra)
+    cfg = load_config(overlay=overlay)
+    for w in ("input", "update"):
+        topic_admin.maybe_create(bus, cfg.get_string(f"oryx.{w}-topic.message.topic"))
+    return cfg, bus
+
+
+def wait_ready(port: int, t0: float, limit_s: float = 300) -> float:
+    status = None
+    while time.monotonic() - t0 < limit_s:
+        status, _ = http_get(port, "/ready")
+        if status == 200:
+            return time.monotonic() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"/ready answered {status}")
+
+
+def csv_lines(np, rows, fmt: str) -> list:
+    import io
+
+    buf = io.StringIO()
+    np.savetxt(buf, rows, fmt=fmt, delimiter=",")
+    return buf.getvalue().splitlines()
+
+
+def parsed(np, lines: list):
+    """The f32 rows a server parses from CSV lines."""
+    return np.asarray([[float(v) for v in ln.split(",")] for ln in lines], np.float32)
+
+
+def f64_assign(np, x, c):
+    """float64 squared distances, nearest center, and the expansion's scale
+    per point (|x|^2 + max |c|^2)."""
+    x, c = x.astype(np.float64), c.astype(np.float64)
+    d2 = (x * x).sum(1)[:, None] - 2.0 * x @ c.T + (c * c).sum(1)[None, :]
+    return d2, d2.argmin(1), (x * x).sum(1) + (c * c).sum(1).max()
+
+
+def near_ties(np, d2, ids_ref, ids_got, scale) -> int:
+    """Count of points assigned otherwise than float64; each must be a near
+    tie (its two distances within NEAR_TIE_D2 of the scale)."""
+    rows = np.nonzero(ids_ref != ids_got)[0]
+    gap = d2[rows, ids_got[rows]] - d2[rows, ids_ref[rows]]
+    check(bool((gap <= NEAR_TIE_D2 * scale[rows]).all()),
+          f"{len(rows)} points assigned otherwise than float64, not near ties")
+    return len(rows)
+
+
+def lloyd_check(torch, np, points_d, centers) -> dict:
+    """One Lloyd iteration on the device from ``centers`` over a slice of
+    the points, against the same iteration in float64 numpy (a point whose
+    two nearest centers tie within NEAR_TIE_D2 goes where the device put
+    it)."""
+    from oryx_tpu_torch.ops.kmeans import assign_clusters, lloyd
+
+    sl = points_d[:LLOYD_CHECK_POINTS]
+    ones = torch.ones(len(sl), dtype=torch.float32, device=sl.device)
+    got, counts = lloyd(sl, ones, centers, iterations=1)
+    got, counts = got.cpu().numpy(), counts.cpu().numpy()
+    ids_dev = assign_clusters(sl, centers)[0].cpu().numpy()
+    x = sl.cpu().numpy().astype(np.float64)
+    d2, ids_ref, scale = f64_assign(np, x, centers)
+    flips = near_ties(np, d2, ids_ref, ids_dev, scale)
+    ids = np.where(ids_ref != ids_dev, ids_dev, ids_ref)
+    k = len(centers)
+    sums = np.zeros((k, x.shape[1]))
+    np.add.at(sums, ids, x)
+    n = np.bincount(ids, minlength=k).astype(np.float64)
+    ref = np.where(n[:, None] > 0, sums / np.maximum(n, 1)[:, None], centers)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(err <= LLOYD_RTOL, f"one Lloyd iteration {err} from float64")
+    check(bool((counts == n).all()), "Lloyd counts differ from float64")
+    return {"points": len(sl), "max_rel_err": err, "near_tie_points": flips}
+
+
+def kmeans_phase(torch, np, root: Path, device="cuda", shape=KMEANS_SHAPE,
+                 app_points=KMEANS_APP_POINTS, requests=APP_REQUESTS,
+                 speed_events=APP_SPEED_EVENTS) -> dict:
+    """Phase 7: build_and_evaluate_kmeans at the bench's shape on the card,
+    one traced build, one Lloyd iteration against float64; then the kmeans
+    app on a file:// bus: a generation, /assign over HTTP, speed UPs."""
+    from oryx_tpu_torch.apps.kmeans.batch import KMeansUpdate
+    from oryx_tpu_torch.apps.kmeans.serving import KMeansServingModelManager
+    from oryx_tpu_torch.apps.kmeans.speed import KMeansSpeedModelManager
+    from oryx_tpu_torch.bus import TopicProducer, get_broker
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
+    from oryx_tpu_torch.ml.quality import build_and_evaluate_kmeans
+    from oryx_tpu_torch.ops.kmeans import online_update, train_kmeans
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    cuda = device == "cuda"
+    out = {"phase": "kmeans", "shape": shape, "replaces": KMEANS_REPLACES}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = build_and_evaluate_kmeans(**shape, device=device)
+    out.update({"build_s": rep.build_s, **rep.timings,
+                "sse_ratio": rep.sse_ratio, "silhouette": rep.silhouette,
+                "wall_s": time.perf_counter() - t0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+    check(rep.sse_ratio <= SSE_RATIO_MAX, f"k-means SSE ratio {rep.sse_ratio}")
+    check(rep.silhouette >= SILHOUETTE_MIN, f"k-means silhouette {rep.silhouette}")
+    out["lloyd_vs_float64"] = lloyd_check(torch, np, rep.points_device,
+                                          rep.model.centers)
+    points = rep.points_device.cpu().numpy()
+    if cuda:
+        out["profile"] = build_profile(torch, lambda: train_kmeans(
+            points, k=shape["k"], iterations=shape["iterations"], device=device))
+    del rep
+
+    dims = shape["dims"]
+    cfg, bus = app_config(root, "kmeans", {
+        "oryx.input-schema.num-features": dims,
+        "oryx.input-schema.numeric-features": [str(j) for j in range(dims)],
+        "oryx.kmeans.hyperparams.k": shape["k"],
+        "oryx.kmeans.iterations": shape["iterations"],
+    })
+    cpu = {"device": "cpu"} if not cuda else None
+    inputs = TopicProducer(get_broker(bus), cfg.get_string("oryx.input-topic.message.topic"))
+    layers = []
+    app = {"points": app_points}
+    try:
+        batch = BatchLayer(cfg, update=KMeansUpdate(cfg, **cpu) if cpu else None)
+        layers.append(batch)
+        batch.ensure_streams()
+        lines = csv_lines(np, points[:app_points], "%.5f")
+        inputs.send_batch((None, line) for line in lines)
+        ts = int(time.time() * 1000)
+        t = time.perf_counter()
+        check(batch.run_generation(ts) == app_points, "generation read short")
+        app["generation_s"] = time.perf_counter() - t
+        t_pub = time.monotonic()
+        batch.close()
+        art = ModelArtifact.read(root / "model" / str(ts))
+        centers = np.asarray(art.tensors["centers"], np.float32)
+        check(centers.shape == (shape["k"], dims), f"published {centers.shape}")
+
+        serving = ServingLayer(cfg, model_manager=KMeansServingModelManager(
+            cfg, **cpu) if cpu else None)
+        layers.append(serving)
+        serving.start()
+        port = serving.port
+        app["publish_to_ready_s"] = wait_ready(port, t_pub)
+
+        # /assign against the float64 nearest center of the published model
+        rng = np.random.default_rng(SEED + 7)
+        sent = csv_lines(np, points[rng.choice(app_points, requests, replace=False)]
+                         + rng.normal(0, 0.5, (requests, dims)), "%.5f")
+        probe = parsed(np, sent)  # the values as the server holds them
+        ids, lat = [], []
+        for datum in sent:
+            t = time.perf_counter()
+            status, body = http_get(port, f"/assign/{datum}")
+            lat.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"/assign answered {status}")
+            ids.append(int(json.loads(body)))
+        d2, ids_ref, scale = f64_assign(np, probe, centers)
+        lat.sort()
+        app["assign"] = {"requests": requests, "p50_ms": quantile(lat, 0.5),
+                         "p99_ms": quantile(lat, 0.99),
+                         "near_tie_points": near_ties(np, d2, ids_ref,
+                                                      np.asarray(ids), scale)}
+
+        # speed: events around one center, its UP applied by serving
+        speed = SpeedLayer(cfg, manager=KMeansSpeedModelManager(
+            cfg, **cpu) if cpu else None)
+        layers.append(speed)
+        speed.start()
+        t = time.monotonic()
+        while speed.manager._model is None and time.monotonic() - t < 120:
+            time.sleep(0.05)
+        check(speed.manager._model is not None, "speed model never loaded")
+        target = int(np.argmax(np.asarray(art.content["counts"])))
+        count0 = int(art.content["counts"][target])
+        sent = csv_lines(np, centers[target] + rng.normal(0.5, 0.05, (speed_events, dims)),
+                         "%.5f")
+        ev = parsed(np, sent)
+        t_write = time.monotonic()
+        inputs.send_batch((None, line) for line in sent)
+        n = speed.run_batch()
+        check(n == speed_events, f"speed read {n} events")
+        evd2, evids, _ = f64_assign(np, ev, centers)
+        check(bool((evids == target).all()), "speed events left the target cluster")
+        want, total = online_update(centers[target].astype(np.float64), count0,
+                                    ev.mean(axis=0), speed_events)
+        moved = None
+        while time.monotonic() - t_write < 60:
+            model = serving.model_manager.get_model()
+            if int(model.counts[target]) == total:
+                moved = model.centers[target].copy()
+                break
+            time.sleep(0.01)
+        app["event_to_moved_s"] = time.monotonic() - t_write
+        check(moved is not None, "serving never applied the speed UP")
+        shift = float(np.abs(moved - centers[target]).max())
+        err = float(np.abs(moved - want).max())
+        check(shift > 0.05 and err <= 1e-5, f"center moved {shift}, {err} from expected")
+        status, body = http_get(port, "/distanceToNearest/" + csv_lines(
+            np, want[None].astype(np.float32), "%.5f")[0])
+        check(status == 200 and float(json.loads(body)) < 1e-2,
+              "/distanceToNearest does not see the moved center")
+        app["speed"] = {"events": speed_events, "center_shift": shift,
+                        "max_err_vs_online_update": err}
+    finally:
+        for layer in layers:
+            layer.close()
+    out["app"] = app
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: RDF (the batch build at UCI-covertype shape, then the app)
+# ---------------------------------------------------------------------------
+
+RDF_SHAPE = {"num_trees": 10, "max_depth": 10}  # 581,012 x 54, 7 classes
+RDF_REPLACES = "oryx_tpu/ops/rdf.py:208"  # _grow_one_tree: torch ops, no Pallas kernel
+RDF_ACC_FLOOR = 0.88  # tests/test_quality_gate.py:78
+RDF_APP_EXAMPLES = 100_000
+
+
+def rdf_phase(torch, np, root: Path, device="cuda", shape=RDF_SHAPE,
+              n_examples=None, app_examples=RDF_APP_EXAMPLES,
+              requests=APP_REQUESTS, speed_events=APP_SPEED_EVENTS) -> dict:
+    """Phase 8: build_and_evaluate_rdf at UCI-covertype shape on the card,
+    one traced growth, route_binned_device against route_binned; then the
+    rdf app on a file:// bus: a generation, /predict and
+    /classificationDistribution over HTTP, speed UPs into the leaf
+    counts."""
+    from oryx_tpu_torch.apps.rdf.batch import RDFUpdate
+    from oryx_tpu_torch.apps.rdf.common import artifact_to_model
+    from oryx_tpu_torch.apps.rdf.serving import RDFServingModelManager
+    from oryx_tpu_torch.apps.rdf.speed import RDFSpeedModelManager
+    from oryx_tpu_torch.apps.schema import InputSchema
+    from oryx_tpu_torch.bus import TopicProducer, get_broker
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
+    from oryx_tpu_torch.ml.quality import build_and_evaluate_rdf
+    from oryx_tpu_torch.ops.rdf import (
+        class_probs_from_leaves, grow_forest, route_binned, route_binned_device)
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    cuda = device == "cuda"
+    kw = {} if n_examples is None else {"n_examples": n_examples}
+    out = {"phase": "rdf", "shape": {**shape, "examples": n_examples or 581_012,
+                                     "features": 54, "classes": 7, "bins": 32,
+                                     "feature_subset": 14},
+           "replaces": RDF_REPLACES}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = build_and_evaluate_rdf(**shape, **kw, device=device)
+    out.update({"build_s": rep.build_s, **rep.timings, "accuracy": rep.accuracy,
+                "accuracy_ceiling": rep.accuracy_ceiling,
+                "wall_s": time.perf_counter() - t0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+    check(rep.accuracy >= RDF_ACC_FLOOR, f"RDF accuracy {rep.accuracy}")
+    f = rep.forest
+    t = time.perf_counter()
+    leaves = route_binned_device(
+        torch.from_numpy(f.feature).to(device), torch.from_numpy(f.split_left).to(device),
+        torch.from_numpy(rep.test_binned).to(device), f.max_depth).cpu().numpy()
+    out["route_device_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host = route_binned(f.feature, f.split_left, rep.test_binned, f.max_depth)
+    out["route_host_s"] = time.perf_counter() - t
+    check(np.array_equal(leaves, host), "route_binned_device != route_binned")
+    out["route_rows"] = len(rep.test_binned)
+    if cuda:
+        out["profile"] = build_profile(torch, lambda: grow_forest(
+            rep.data, rep.y_train, num_trees=shape["num_trees"],
+            max_depth=shape["max_depth"], impurity="entropy", n_classes=7,
+            feature_subset=14, device=device))
+
+    # the app: covertype-width lines (54 numeric features and the class)
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.standard_normal((app_examples, 54)).astype(np.float32)
+    y = ((x[:, 0] > 0) * 4 + (x[:, 7] > 0.5) * 2 + (x[:, 21] > -0.5)
+         + (x[:, 40] > 0.3)) % 7
+    y = np.where(rng.random(app_examples) < 0.1, rng.integers(0, 7, app_examples), y)
+    names = [f"f{j}" for j in range(54)]
+    cfg, bus = app_config(root, "rdf", {
+        "oryx.input-schema.feature-names": names + ["cover"],
+        "oryx.input-schema.numeric-features": names,
+        "oryx.input-schema.target-feature": "cover",
+        "oryx.rdf.num-trees": shape["num_trees"],
+        "oryx.rdf.hyperparams.max-depth": shape["max_depth"],
+        "oryx.rdf.hyperparams.max-split-candidates": 32,
+        "oryx.rdf.hyperparams.impurity": "entropy",
+        "oryx.rdf.hyperparams.feature-subset": 14,
+    })
+    cpu = {"device": "cpu"} if not cuda else None
+    inputs = TopicProducer(get_broker(bus), cfg.get_string("oryx.input-topic.message.topic"))
+    lines = [f"{row},c{int(label)}" for row, label in
+             zip(csv_lines(np, x, "%.4f"), y)]
+    layers = []
+    app = {"examples": app_examples}
+    try:
+        batch = BatchLayer(cfg, update=RDFUpdate(cfg, **cpu) if cpu else None)
+        layers.append(batch)
+        batch.ensure_streams()
+        inputs.send_batch((None, line) for line in lines)
+        ts = int(time.time() * 1000)
+        t = time.perf_counter()
+        check(batch.run_generation(ts) == app_examples, "generation read short")
+        app["generation_s"] = time.perf_counter() - t
+        t_pub = time.monotonic()
+        batch.close()
+        art = ModelArtifact.read(root / "model" / str(ts))
+        ref = artifact_to_model(art, InputSchema(cfg), device="cpu")
+
+        serving = ServingLayer(cfg, model_manager=RDFServingModelManager(
+            cfg, **cpu) if cpu else None)
+        layers.append(serving)
+        serving.start()
+        port = serving.port
+        app["publish_to_ready_s"] = wait_ready(port, t_pub)
+
+        # /predict and /classificationDistribution against the host path
+        probe = [ln.rsplit(",", 1)[0] + "," for ln in
+                 (lines[j] for j in rng.choice(app_examples, requests, replace=False))]
+        pred_lat, dist_lat, worst = [], [], 0.0
+        for datum in probe:
+            binned = ref.datum_to_binned(datum)
+            want = class_probs_from_leaves(ref.forest, route_binned(
+                ref.forest.feature, ref.forest.split_left, binned,
+                ref.forest.max_depth))[0]
+            t = time.perf_counter()
+            status, body = http_get(port, f"/predict/{datum}")
+            pred_lat.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"/predict answered {status}")
+            check(json.loads(body) == ref.encodings.decode(
+                ref.schema.target_index, int(np.argmax(want))), "/predict differs")
+            t = time.perf_counter()
+            status, body = http_get(port, f"/classificationDistribution/{datum}")
+            dist_lat.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"/classificationDistribution answered {status}")
+            got = dict(json.loads(body))
+            for code, p in enumerate(want):
+                worst = max(worst, abs(got[ref.encodings.decode(
+                    ref.schema.target_index, code)] - p))
+        check(worst <= 1e-6, f"/classificationDistribution {worst} from the host")
+        pred_lat.sort()
+        dist_lat.sort()
+        app["predict"] = {"requests": requests, "p50_ms": quantile(pred_lat, 0.5),
+                          "p99_ms": quantile(pred_lat, 0.99)}
+        app["distribution"] = {"requests": requests,
+                               "p50_ms": quantile(dist_lat, 0.5),
+                               "p99_ms": quantile(dist_lat, 0.99),
+                               "max_abs_err": worst}
+
+        # speed: labeled events folded into the served leaf counts
+        speed = SpeedLayer(cfg, manager=RDFSpeedModelManager(cfg, **cpu) if cpu else None)
+        layers.append(speed)
+        speed.start()
+        t = time.monotonic()
+        while speed.manager.model is None and time.monotonic() - t < 120:
+            time.sleep(0.05)
+        check(speed.manager.model is not None, "speed model never loaded")
+        before = float(serving.model_manager.get_model().rdf.forest.class_counts.sum())
+        ups = []
+        real = speed.manager.build_updates
+
+        def build_updates(records):
+            built = real(records)
+            ups.extend(built)
+            return built
+        speed.manager.build_updates = build_updates
+        t_write = time.monotonic()
+        inputs.send_batch((None, lines[j]) for j in range(speed_events))
+        check(speed.run_batch() == speed_events, "speed read short")
+        added = sum(sum(json.loads(m)[2].values()) for _, m in ups)
+        check(added == shape["num_trees"] * speed_events,
+              f"speed UPs carry {added} counts")
+        applied = None
+        while time.monotonic() - t_write < 60:
+            now = float(serving.model_manager.get_model().rdf.forest.class_counts.sum())
+            if now == before + added:
+                applied = now
+                break
+            time.sleep(0.01)
+        app["event_to_applied_s"] = time.monotonic() - t_write
+        check(applied is not None, "serving never applied the speed UPs")
+        app["speed"] = {"events": speed_events, "up_rows": len(ups),
+                        "counts_added": added}
+    finally:
+        for layer in layers:
+            layer.close()
+    out["app"] = app
+    return out
+
+
+# ---------------------------------------------------------------------------
 # A/B of the http phase: python3 chip_smoke.py --ab-parent DIR [--ab-order ..]
 # ---------------------------------------------------------------------------
 
@@ -1870,6 +2353,19 @@ def main() -> int:
     emit(loop)
     serving["lambda"] = loop
     TopKBatcher.shared().close()
+    torch.cuda.empty_cache()
+
+    for name, phase in (("kmeans", kmeans_phase), ("rdf", rdf_phase)):
+        t0 = time.monotonic()
+        root = Path(__file__).resolve().parent / "build" / f"smoke-{name}"
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            line = phase(torch, np, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        line["seconds"] = time.monotonic() - t0
+        emit(line)
+        torch.cuda.empty_cache()
 
     launches = {
         name: sum(run["launches"][name] for run in serving.values())

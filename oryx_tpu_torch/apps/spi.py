@@ -11,13 +11,13 @@ the contract the framework layers load reflectively:
 
 ``--app <name>`` on the CLI overlays all four keys from the app's AppSpec.
 Specs are plain dotted strings naming the port's own classes — importing
-this module loads NO app code. The kmeans, rdf, example and seq apps come
-with their own slices (ROADMAP queue 1).
+this module loads NO app code. The example and seq apps come with their
+own slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -30,6 +30,9 @@ class AppSpec:
     serving_manager: str                 # oryx.serving.model-manager-class
     serving_resources: tuple[str, ...]   # oryx.serving.application-resources
     description: str = ""
+    # Minimal config overlay that makes the classes constructible (the
+    # schema-driven apps need an input schema before __init__ succeeds)
+    example_overlay: dict = field(default_factory=dict)
 
 
 _REGISTRY: dict[str, AppSpec] = {}
@@ -79,4 +82,38 @@ register_app(AppSpec(
         "oryx_tpu_torch.serving.resources.als",
     ),
     description="implicit/explicit-feedback matrix-factorization recommender",
+))
+
+register_app(AppSpec(
+    name="kmeans",
+    batch_update="oryx_tpu_torch.apps.kmeans.batch.KMeansUpdate",
+    speed_manager="oryx_tpu_torch.apps.kmeans.speed.KMeansSpeedModelManager",
+    serving_manager="oryx_tpu_torch.apps.kmeans.serving.KMeansServingModelManager",
+    serving_resources=(
+        "oryx_tpu_torch.serving.resources.common",
+        "oryx_tpu_torch.serving.resources.clustering",
+    ),
+    description="k-means|| clustering",
+    example_overlay={
+        "oryx.input-schema.num-features": 2,
+        "oryx.input-schema.numeric-features": ["0", "1"],
+    },
+))
+
+register_app(AppSpec(
+    name="rdf",
+    batch_update="oryx_tpu_torch.apps.rdf.batch.RDFUpdate",
+    speed_manager="oryx_tpu_torch.apps.rdf.speed.RDFSpeedModelManager",
+    serving_manager="oryx_tpu_torch.apps.rdf.serving.RDFServingModelManager",
+    serving_resources=(
+        "oryx_tpu_torch.serving.resources.common",
+        "oryx_tpu_torch.serving.resources.classreg",
+    ),
+    description="random-decision-forest classification/regression",
+    example_overlay={
+        "oryx.input-schema.feature-names": ["a", "b", "label"],
+        "oryx.input-schema.numeric-features": ["a", "b"],
+        "oryx.input-schema.categorical-features": ["label"],
+        "oryx.input-schema.target-feature": "label",
+    },
 ))

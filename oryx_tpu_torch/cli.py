@@ -5,6 +5,9 @@
   python -m oryx_tpu_torch.cli speed --app als --conf oryx.conf
   python -m oryx_tpu_torch.cli serving --app als --conf oryx.conf
 
+(``--app kmeans`` and ``--app rdf`` as well; their input schema comes from
+the config, ``oryx.input-schema.*``)
+
 runs that layer on the CUDA card until interrupted (each raises without a
 card). ``--set key=value`` overrides a config key (repeatable); ``--app
 <name>`` overlays the packaged app's classes and serving resources
@@ -30,7 +33,8 @@ def _parse_args(argv):
     p.add_argument("command", choices=["batch", "speed", "serving"])
     p.add_argument(
         "--app", default=None, metavar="NAME",
-        help="packaged app to run (registry lookup, apps/spi.py): als. "
+        help="packaged app to run (registry lookup, apps/spi.py): als, "
+        "kmeans or rdf. "
         "Overlays the app's classes and serving resources underneath any "
         "explicit --set",
     )

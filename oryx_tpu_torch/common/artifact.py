@@ -4,8 +4,9 @@ and the publisher side, ``publish_model_ref``, of
 oryx_tpu/common/artifact.py).
 
 It reads what the JAX package's ``ModelArtifact.write`` / ``to_string``
-produce, so the artifact is the weight interchange between the two
-packages. Layout on disk (a directory):
+produce, and ``to_pmml_xml`` writes the same PMML document, so the
+artifact is the weight interchange between the two packages. Layout on
+disk (a directory):
     <dir>/model.json      {"app":..., "extensions":{...}, "content":{...}}
     <dir>/tensors.npz     optional named ndarray payloads
 
@@ -107,6 +108,46 @@ class ModelArtifact:
             with np.load(io.BytesIO(base64.b64decode(doc["tensors_b64"]))) as z:
                 tensors = {k: z[k] for k in z.files}
         return ModelArtifact(doc["app"], doc.get("extensions"), doc.get("content"), tensors)
+
+
+    # -- PMML export shim ---------------------------------------------------
+
+    def to_pmml_xml(self) -> str:
+        """Minimal PMML 4.3 document: header + extensions (+ ClusteringModel
+        for k-means content), enough for external PMML consumers to read what
+        the reference would have published."""
+        from xml.sax.saxutils import escape, quoteattr
+
+        lines = [
+            '<?xml version="1.0" encoding="UTF-8"?>',
+            '<PMML xmlns="http://www.dmg.org/PMML-4_3" version="4.3">',
+            '  <Header><Application name="oryx_tpu"/></Header>',
+        ]
+        for k, v in self.extensions.items():
+            lines.append(f"  <Extension name={quoteattr(k)} value={quoteattr(str(v))}/>")
+        if self.app == "kmeans" and "centers" in self.tensors:
+            centers = self.tensors["centers"]
+            counts = self.content.get("counts", [0] * len(centers))
+            n_feat = centers.shape[1] if len(centers) else 0
+            lines.append(
+                f'  <ClusteringModel functionName="clustering" modelClass="centerBased" '
+                f'numberOfClusters="{len(centers)}">'
+            )
+            lines.append(
+                '    <ComparisonMeasure kind="distance"><squaredEuclidean/></ComparisonMeasure>'
+            )
+            lines.append("    <MiningSchema/>")
+            ids = self.content.get("clusterIDs") or [str(i) for i in range(len(centers))]
+            for i, c in enumerate(centers):
+                center = " ".join(repr(float(x)) for x in c)
+                lines.append(
+                    f"    <Cluster id={quoteattr(str(ids[i]))} "
+                    f"size={quoteattr(str(int(counts[i])))}>"
+                    f'<Array n="{n_feat}" type="real">{escape(center)}</Array></Cluster>'
+                )
+            lines.append("  </ClusteringModel>")
+        lines.append("</PMML>")
+        return "\n".join(lines)
 
 
 def read_artifact_from_update(key: str, message: str) -> ModelArtifact:

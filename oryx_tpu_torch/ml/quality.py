@@ -1,8 +1,11 @@
-"""The ALS build-and-evaluate harness (the port's copy of the ALS part of
-oryx_tpu/ml/quality.py): synthesize interactions, train, and measure the
-held-out AUC, with NaN factor rows surfaced as a first-class diagnostic.
-``chip_smoke.py`` runs it on the card at the bench's north-star shape. The
-RDF, k-means and serving-recall harnesses come with their own slices.
+"""The build-and-evaluate harnesses of ALS, RDF and k-means (the port's
+copy of those parts of oryx_tpu/ml/quality.py): synthesize data from the
+same seeds, train on the card, and measure quality — ALS's held-out AUC
+(with NaN factor rows surfaced as a first-class diagnostic), the forest's
+held-out accuracy on a planted rule, and k-means' SSE against the planted
+centers and its silhouette. ``chip_smoke.py`` runs them on the card at the
+bench's shapes. The seq and serving-recall harnesses come with their own
+slices.
 """
 
 from __future__ import annotations
@@ -143,3 +146,188 @@ def holdout_auc(
         known,
     )
 
+
+
+@dataclass
+class RDFReport:
+    build_s: float
+    accuracy: float
+    examples: int
+    trees: int
+    noise_rate: float
+    n_classes: int
+    timings: dict = field(default_factory=dict)
+    # the forest, its binned training data and labels, and the held-out
+    # rows binned with the training edges, for a caller that looks further
+    # at the build
+    forest: object = None
+    data: object = None
+    y_train: np.ndarray | None = None
+    test_binned: np.ndarray | None = None
+
+    @property
+    def accuracy_ceiling(self) -> float:
+        """Achievable held-out accuracy: flipped labels agree with the
+        rule by chance 1/n_classes of the time."""
+        return 1.0 - self.noise_rate * (1.0 - 1.0 / self.n_classes)
+
+
+def build_and_evaluate_rdf(
+    n_examples: int = 581_012,
+    n_features: int = 54,
+    n_classes: int = 7,
+    num_trees: int = 20,
+    max_depth: int = 10,
+    noise_rate: float = 0.1,
+    holdout_p: float = 0.1,
+    seed: int = 13,
+    feature_subset: str | int = 14,
+    device=None,
+) -> RDFReport:
+    """Planted-rule synthetic at UCI-covertype shape (581k x 54, 7
+    classes), the JAX package's harness on the same data from the same
+    seed: the label is a rule over 4 axis-aligned thresholds with
+    ``noise_rate`` labels flipped, so a healthy forest lands near
+    ``accuracy_ceiling``. Grown on ``device`` (the card unless the caller
+    names the CPU); the held-out rows are binned with the training edges
+    and routed on the same device. ``timings`` gets bin_s and grow_s."""
+    from oryx_tpu_torch.device import resolve_device
+    from oryx_tpu_torch.ops.rdf import (
+        bin_column,
+        bin_dataset,
+        class_probs_from_leaves,
+        grow_forest,
+        route_binned_device,
+    )
+
+    import torch
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n_examples, n_features)).astype(np.float32)
+    r1 = (x[:, 0] > 0).astype(np.int64)
+    r2 = (x[:, 7] > 0.5).astype(np.int64)
+    r3 = (x[:, 21] > -0.5).astype(np.int64)
+    r4 = (x[:, 40] > 0.3).astype(np.int64)
+    y_true = (r1 * 4 + r2 * 2 + r3 + r4) % n_classes
+    flip = rng.random(n_examples) < noise_rate
+    y = np.where(
+        flip, rng.integers(0, n_classes, n_examples), y_true
+    ).astype(np.int32)
+
+    test = rng.random(n_examples) < holdout_p
+    tr = ~test
+
+    timings: dict = {}
+    t0 = time.perf_counter()
+    binned = bin_dataset(
+        x[tr],
+        is_categorical=np.zeros(n_features, dtype=bool),
+        category_counts=np.zeros(n_features, dtype=np.int32),
+        max_split_candidates=32,
+    )
+    t1 = time.perf_counter()
+    forest = grow_forest(
+        binned, y[tr], num_trees=num_trees, max_depth=max_depth,
+        impurity="entropy", n_classes=n_classes,
+        feature_subset=feature_subset, device=dev,
+    )
+    build_s = time.perf_counter() - t0
+    timings["bin_s"], timings["grow_s"] = t1 - t0, build_s - (t1 - t0)
+
+    xt = x[test]
+    test_binned = np.empty_like(xt, dtype=np.int32)
+    for j in range(n_features):
+        test_binned[:, j] = bin_column(
+            xt[:, j], binned.edges[j], int(binned.n_bins[j])
+        )
+    leaves = route_binned_device(
+        torch.from_numpy(forest.feature).to(dev),
+        torch.from_numpy(forest.split_left).to(dev),
+        torch.from_numpy(test_binned).to(dev),
+        forest.max_depth,
+    ).cpu().numpy()
+    probs = class_probs_from_leaves(forest, leaves)
+    acc = float((np.argmax(probs, axis=1) == y[test]).mean())
+    return RDFReport(
+        build_s=build_s,
+        accuracy=acc,
+        examples=n_examples,
+        trees=num_trees,
+        noise_rate=noise_rate,
+        n_classes=n_classes,
+        timings=timings,
+        forest=forest,
+        data=binned,
+        y_train=y[tr],
+        test_binned=test_binned,
+    )
+
+
+@dataclass
+class KMeansReport:
+    build_s: float
+    sse_ratio: float  # model SSE / planted-centers SSE (1.0 = perfect)
+    silhouette: float
+    points: int
+    k: int
+    timings: dict = field(default_factory=dict)
+    # the trained centers and the points on the device, for a caller that
+    # looks further at the build
+    model: object = None
+    points_device: object = None
+
+
+def build_and_evaluate_kmeans(
+    n_points: int = 1_000_000,
+    dims: int = 20,
+    k: int = 50,
+    iterations: int = 10,
+    spread: float = 5.0,
+    seed: int = 19,
+    device=None,
+) -> KMeansReport:
+    """Planted Gaussian blobs (the JAX package's harness on the same data
+    from the same seed): k true centers at ``spread`` separation,
+    unit-variance clusters. A healthy k-means|| + Lloyd's run recovers
+    near the generating structure: SSE within a small factor of the
+    planted-centers SSE, positive silhouette. Trained and measured on
+    ``device`` (the card unless the caller names the CPU); ``timings``
+    gets the trainer's upload_s, init_s and lloyd_s."""
+    from oryx_tpu_torch.device import resolve_device
+    from oryx_tpu_torch.ops.kmeans import (
+        silhouette_coefficient,
+        sum_squared_error,
+        train_kmeans,
+    )
+
+    import torch
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    centers_true = (rng.standard_normal((k, dims)) * spread).astype(np.float32)
+    pts = (
+        centers_true[rng.integers(0, k, n_points)]
+        + rng.standard_normal((n_points, dims))
+    ).astype(np.float32)
+
+    timings: dict = {}
+    t0 = time.perf_counter()
+    model = train_kmeans(pts, k=k, iterations=iterations, device=dev,
+                         timings=timings)
+    build_s = time.perf_counter() - t0
+
+    pts_d = torch.from_numpy(pts).to(dev)  # one upload for the metrics
+    sse_model = sum_squared_error(pts_d, model.centers)
+    sse_true = sum_squared_error(pts_d, centers_true)
+    sil = silhouette_coefficient(pts_d, model.centers)
+    return KMeansReport(
+        build_s=build_s,
+        sse_ratio=float(sse_model / sse_true),
+        silhouette=float(sil),
+        points=n_points,
+        k=k,
+        timings=timings,
+        model=model,
+        points_device=pts_d,
+    )

@@ -654,3 +654,108 @@ def test_wedge_probe_and_dispatch_records_on_the_card(cuda_device, dtype,
     want = peak_flops_for_name(torch.cuda.get_device_name(0),
                                "int8" if dtype == torch.int8 else "bfloat16")
     assert get_perfstats().peak_for("serving") == want
+
+
+# ---------------------------------------------------------------------------
+# k-means and RDF ops on the card against the same functions on the CPU
+# ---------------------------------------------------------------------------
+
+def _kmeans_points(n=20000, d=20, k=16, seed=1):
+    rng = np.random.default_rng(seed)
+    centers = (rng.standard_normal((k, d)) * 5).astype(np.float32)
+    pts = (centers[rng.integers(0, k, n)] + rng.standard_normal((n, d))).astype(np.float32)
+    return pts, centers
+
+
+def test_kmeans_assignment_on_the_card_matches_the_cpu(cuda_device):
+    """ids equal (TF32 off on the card), squared distances within 1e-5
+    relative to |x|^2 + |c|^2."""
+    from oryx_tpu_torch.ops.kmeans import assign_clusters
+
+    pts, centers = _kmeans_points()
+    centers = centers + 0.3
+    ic, dc = assign_clusters(pts, centers, device="cpu")
+    ig, dg = assign_clusters(pts, centers, device=cuda_device)
+    np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
+    scale = (pts * pts).sum(1) + (centers * centers).sum(1).max()
+    err = np.abs(dg.cpu().numpy().astype(np.float64) ** 2 - dc.numpy().astype(np.float64) ** 2)
+    assert (err <= 1e-5 * scale).all()
+
+
+def test_lloyd_on_the_card_matches_the_cpu(cuda_device):
+    """Same centers0 and weights (zero weights, an empty cluster): centers
+    within 1e-5 of the largest entry (atomic sums in another order),
+    counts equal."""
+    from oryx_tpu_torch.ops.kmeans import lloyd
+
+    pts, centers = _kmeans_points()
+    c0 = pts[:17].copy()
+    c0[16] = 1e3
+    w = np.ones(len(pts), np.float32)
+    w[::5] = 0.0
+    cc, nc = lloyd(pts, w, c0, iterations=6, device="cpu")
+    cg, ng = lloyd(pts, w, c0, iterations=6, device=cuda_device)
+    np.testing.assert_allclose(cg.cpu().numpy(), cc.numpy(), rtol=0,
+                               atol=1e-5 * np.abs(cc.numpy()).max())
+    np.testing.assert_array_equal(ng.cpu().numpy(), nc.numpy())
+
+
+def test_train_kmeans_on_the_card(cuda_device):
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.ops.kmeans import sum_squared_error, train_kmeans
+
+    pts, centers = _kmeans_points(k=8)
+    RandomManager.use_test_seed()
+    timings: dict = {}
+    m = train_kmeans(pts, 8, iterations=10, device=cuda_device, timings=timings)
+    sse = sum_squared_error(pts, m.centers, device=cuda_device)
+    assert sse <= 1.05 * sum_squared_error(pts, centers, device=cuda_device)
+    assert m.counts.sum() == len(pts) and timings["lloyd_s"] > 0
+
+
+def _rdf_inputs(n=20000, p=12, c=5, seed=3):
+    from oryx_tpu_torch.ops.rdf import bin_dataset
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, p))
+    x[:, -1] = rng.integers(0, 6, n)
+    y = ((x[:, 0] > 0) * 2 + (x[:, 3] > 0.5) + (x[:, -1] > 3)) % c
+    y = np.where(rng.random(n) < 0.1, rng.integers(0, c, n), y).astype(np.int32)
+    is_cat = np.zeros(p, bool)
+    is_cat[-1] = True
+    counts = np.zeros(p, int)
+    counts[-1] = 6
+    return bin_dataset(x, is_cat, counts, 32), y
+
+
+def test_grow_forest_on_the_card_matches_the_cpu(cuda_device):
+    """Classification with every feature at every node: integer histogram
+    sums are exact in any order, so the card's trees equal the CPU's."""
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.ops.rdf import grow_forest
+
+    data, y = _rdf_inputs()
+    out = []
+    for dev in ("cpu", cuda_device):
+        RandomManager.use_test_seed()
+        out.append(grow_forest(data, y, num_trees=4, max_depth=7, impurity="entropy",
+                               n_classes=5, feature_subset="all", device=dev))
+    np.testing.assert_array_equal(out[1].feature, out[0].feature)
+    np.testing.assert_array_equal(out[1].split_left, out[0].split_left)
+    np.testing.assert_array_equal(out[1].class_counts, out[0].class_counts)
+
+
+def test_route_binned_device_on_the_card_matches_the_host(cuda_device):
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.ops.rdf import grow_forest, route_binned, route_binned_device
+
+    data, y = _rdf_inputs()
+    RandomManager.use_test_seed()
+    f = grow_forest(data, y, num_trees=6, max_depth=8, impurity="gini", n_classes=5,
+                    feature_subset="sqrt", device=cuda_device)
+    leaves = route_binned_device(
+        torch.from_numpy(f.feature).to(cuda_device),
+        torch.from_numpy(f.split_left).to(cuda_device),
+        torch.from_numpy(data.binned).to(cuda_device), f.max_depth)
+    np.testing.assert_array_equal(
+        leaves.cpu().numpy(), route_binned(f.feature, f.split_left, data.binned, f.max_depth))

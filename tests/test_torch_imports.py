@@ -63,6 +63,48 @@ def test_every_port_module_imports_with_jax_blocked():
         "oryx_tpu_torch.common.flightrec", "oryx_tpu_torch.common.slo",
         "oryx_tpu_torch.common.perfstats", "oryx_tpu_torch.serving.viewsync",
     } <= names
+    assert set(KMEANS_RDF_MODULES) <= names
+
+
+# the k-means and RDF apps' modules and what they share
+KMEANS_RDF_MODULES = (
+    "oryx_tpu_torch.ops.kmeans", "oryx_tpu_torch.ops.rdf",
+    "oryx_tpu_torch.apps.schema", "oryx_tpu_torch.common.pmml",
+    "oryx_tpu_torch.apps.kmeans.common", "oryx_tpu_torch.apps.kmeans.batch",
+    "oryx_tpu_torch.apps.kmeans.speed", "oryx_tpu_torch.apps.kmeans.serving",
+    "oryx_tpu_torch.apps.rdf.common", "oryx_tpu_torch.apps.rdf.batch",
+    "oryx_tpu_torch.apps.rdf.speed", "oryx_tpu_torch.apps.rdf.serving",
+    "oryx_tpu_torch.serving.resources.clustering",
+    "oryx_tpu_torch.serving.resources.classreg",
+)
+
+
+def test_kmeans_rdf_modules_import_with_jax_blocked():
+    """Each module of the k-means and RDF apps, imported alone in a fresh
+    process with jax blocked, loads no module of the JAX package; the
+    quality harnesses and to_pmml_xml are there."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {KMEANS_RDF_MODULES!r}:
+            importlib.import_module(name)
+        from oryx_tpu_torch.common.artifact import ModelArtifact
+        from oryx_tpu_torch.ml.quality import (
+            build_and_evaluate_kmeans, build_and_evaluate_rdf)
+        assert callable(ModelArtifact.to_pmml_xml)
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
 
 
 def test_port_sources_name_no_jax_package_import():
