@@ -16,6 +16,12 @@ Phases, each printing JSON lines:
    merge, torch.topk of the union of the partial lists; timed only, at 100k
    items or more) and the least time the card could take (H100 SXM data
    sheet peaks);
+2b. gate: ml/quality.py's evaluate_score_mode_recall on the card at the
+   JAX package's standing corpus (100,000 x 50, 256 queries, k = 10) and
+   at the serving catalog's width (1M x 50): quantized (the int8 kernels
+   through topk_dot_batch) and approx recall@10 >= 0.95, and the smoke's
+   own exact-mode row (the bf16 kernels over the bf16 view, the same
+   re-rank) >= 0.99; eval seconds and the launches the line caused;
 3. serving (the main path): a synthetic ALS model of 1M items x 50 features
    and 100k users, written as a model artifact and loaded by
    ALSServingModelManager from a MODEL-REF message, answers 2,048 concurrent
@@ -51,9 +57,18 @@ Phases, each printing JSON lines:
    and the latency budget's queue_wait and device. In score-mode quantized
    one GET /debug/profile?seconds=2 runs during one more burst: its
    dispatch records and its torch.profiler trace (which must hold top-k
-   kernels). Then POST
+   kernels). Each burst runs with the live quality sampler at its default
+   1% and reports, once the sampler drained, its samples, drops, live
+   recall@10 (held to the floors above from 20 samples) and margin p50;
+   in score-mode quantized the burst runs again with the sampler at 10%
+   and off, each with its qps. Then POST
    /pref must reach the input topic, and an UP row on the update topic
    planting a new best item must come back from /recommend over HTTP;
+4a. lsh: the same model served with oryx.als.sample-rate = 0.3 (LSH
+   candidates scored on the host, no device view), 512 requests over
+   HTTP with the sampler at 5% and again with it off: qps, p50/p99,
+   recall@10 against the float64 ranking, the sampler's live LSH recall,
+   the partition build's seconds;
 4b. wedge: the serving layer again, its batcher set to declare a wedge
    after 2 s and probe every 1 s, and a one-shot 5 s latency fault armed
    at serving.device (common/faults.py): the stuck request must get 503
@@ -84,8 +99,17 @@ Phases, each printing JSON lines:
    time from the events' write to /recommend answering for a new user;
    50,000 more events and a generation in a fresh batch layer that must
    take the incremental path (warm start from the model dir); serving
-   must then serve the new generation. The fused top-k kernels' launches
-   in the serving leg are counted as in phases 3 and 4;
+   must then serve the new generation. The update topic's max message size
+   is 16 KiB, so the generation's model message goes out as MODEL-CHUNKs +
+   MODEL-REF, and the serving layer reaches /ready with the model
+   directory moved away (the artifact relay alone); the drift gauges of
+   /healthz quality must be finite after the speed layer's events; then
+   a second serving layer runs with the model gate in hold mode: armed at
+   generation 1, it holds the delta generation, and POST
+   /control/model/approve and /control/model/rollback are each timed to
+   the generation being served, with recall@10 against both generations'
+   factors. The fused top-k kernels' launches in the serving leg are
+   counted as in phases 3 and 4;
 7. kmeans (torch ops on the card, no hand kernel): the port's
    build_and_evaluate_kmeans at the bench's shape (5M planted points x 20
    dims, k = 100, 10 Lloyd iterations, k-means|| init): build seconds
@@ -125,6 +149,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -464,6 +489,135 @@ def library_call(torch, xk, y, k, scales):
 def library_ms(torch, xk, y, k, scales, what: str):
     return time_ms(torch, library_call(torch, xk, y, k, scales), what,
                    reps=5 if xk.shape[0] > 1000 else 20)
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the score-mode recall gate on the card
+# ---------------------------------------------------------------------------
+
+# (items, queries): the JAX package's standing corpus (ml/quality.py's
+# defaults), then the serving catalog's full width
+GATE_SHAPES = ((100_000, 256), (N_ITEMS, 256))
+GATE_SEED = 23  # ml/quality.py evaluate_score_mode_recall's corpus seed
+
+
+def gate_phase(torch, np, T) -> dict:
+    """evaluate_score_mode_recall on the card at each GATE_SHAPES corpus
+    (quantized: the int8 kernels through topk_dot_batch; approx: exact,
+    as off the TPU), and beside it the smoke's own exact-mode row: the
+    same corpus and re-rank, scored through topk_dot_batch over the bf16
+    view (the bf16 kernels). Launch counts cover the whole phase."""
+    from oryx_tpu_torch.ml.quality import (
+        MIN_SCORE_MODE_RECALL,
+        evaluate_score_mode_recall,
+        mean_recall_at_k,
+        recall_corpus,
+        rescored_topk,
+    )
+    from oryx_tpu_torch.ops.als import topk_dot_batch, topk_dot_batch_xla
+    from oryx_tpu_torch.ops.transfer import staged_device_put
+
+    rows = []
+    T.reset_launches()  # the gate's window opens
+    for n_items, n_queries in GATE_SHAPES:
+        before = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+        rep = evaluate_score_mode_recall(n_items=n_items, n_queries=n_queries,
+                                         seed=GATE_SEED)
+        t0 = time.perf_counter()
+        y, xs = recall_corpus(n_items, rep.features, n_queries, GATE_SEED)
+        xs_d = torch.from_numpy(xs).cuda()
+        _, exact_idx = topk_dot_batch_xla(xs_d, torch.from_numpy(y).cuda(),
+                                          k=rep.k)
+        y_bf = staged_device_put(y, dtype=torch.bfloat16, device="cuda")
+        _, e_idx = topk_dot_batch(xs_d, y_bf, k=min(n_items, rep.k + 8))
+        recall_e = mean_recall_at_k(
+            rescored_topk(y, xs, e_idx.cpu().numpy(), rep.k),
+            exact_idx.cpu().numpy(), rep.k)
+        exact_s = time.perf_counter() - t0
+        launched = {t: T.PARTIAL_LAUNCHES_BY_TYPE[t] - before[t]
+                    for t in before}
+        row = {"items": n_items, "features": rep.features,
+               "queries": n_queries, "k": rep.k,
+               "recall_quantized": rep.recall_quantized,
+               "recall_approx": rep.recall_approx, "recall_exact": recall_e,
+               "eval_s": rep.eval_s, "exact_row_s": exact_s,
+               "partial_launches_by_type": launched}
+        rows.append(row)
+        emit({"phase": "gate-row", **row})
+        check(launched["int8"] > 0 and launched["bfloat16"] > 0,
+              f"gate at {n_items} items launched {launched}")
+        for name in ("recall_quantized", "recall_approx"):
+            check(row[name] >= MIN_SCORE_MODE_RECALL,
+                  f"gate at {n_items} items: {name} {row[name]}")
+        check(recall_e >= MIN_RECALL["exact"],
+              f"gate at {n_items} items: exact recall {recall_e}")
+        del y_bf, xs_d
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"phase": "gate", "min_recall": MIN_SCORE_MODE_RECALL,
+            "min_exact_recall": MIN_RECALL["exact"], "rows": rows,
+            "launches": dict(T.LAUNCHES),  # ... and closes
+            "partial_launches_by_type": dict(T.PARTIAL_LAUNCHES_BY_TYPE)}
+
+
+# ---------------------------------------------------------------------------
+# the live quality plane, read around a burst
+# ---------------------------------------------------------------------------
+
+MIN_LIVE_SAMPLES = 20  # live recall is held to MIN_RECALL from this many
+
+
+def quality_mark() -> dict:
+    """Open a burst's quality window: the sampler's windows start empty
+    (as at a generation boundary) and the cumulative counts are kept."""
+    from oryx_tpu_torch.common.metrics import get_registry
+    from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+    qs = get_qualitystats()
+    check(qs.flush(120), "the quality sampler did not drain")
+    qs.note_generation()
+    reg = get_registry()
+    return {"samples": qs.samples_processed(),
+            "dropped": reg.counter("oryx_quality_sample_drops_total").value(),
+            "margins": reg.histogram("oryx_live_score_margin").bucket_counts()}
+
+
+def quality_read(port: int, mode: str, mark: dict) -> dict:
+    """The burst's quality from /healthz ``quality`` once the sampler has
+    drained: samples and drops in the burst, live recall@10 of ``mode``,
+    the margin histogram's p50 (the bucket bound it falls under). Holds
+    live recall to MIN_RECALL[mode] from MIN_LIVE_SAMPLES samples."""
+    from oryx_tpu_torch.common.metrics import get_registry
+    from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+    qs = get_qualitystats()
+    check(qs.flush(300), "the quality sampler did not drain")
+    _s, body = http_get(port, "/healthz")
+    q = json.loads(body)["quality"]
+    n = q["samples"] - mark["samples"]
+    after = get_registry().histogram("oryx_live_score_margin").bucket_counts()
+    delta = [(ub, c - c0) for (ub, c), (_u, c0) in zip(after, mark["margins"])]
+    total = delta[-1][1]
+    p50 = next((ub for ub, c in delta if c >= total / 2), None) if total else None
+    live = qs.live_recall(mode)
+    out = {"sample_rate": q["sample_rate"], "samples": n,
+           "dropped": q["dropped"] - int(mark["dropped"]),
+           "live_recall_at_10": None if live != live else live,
+           "healthz_live_recall_at_10": q["live_recall_at_10"],
+           "margin_p50_at_most": p50}
+    if mode in MIN_RECALL and n >= MIN_LIVE_SAMPLES:
+        check(live >= MIN_RECALL[mode],
+              f"live {mode} recall@10 {live} < {MIN_RECALL[mode]} ({n} samples)")
+    return out
+
+
+def set_sample_rate(config, rate: float) -> None:
+    """Reconfigure the quality sampler of this process (the serving
+    layer's config with oryx.monitoring.quality.sample-rate replaced)."""
+    from oryx_tpu_torch.common.qualitystats import configure_qualitystats
+
+    configure_qualitystats(
+        config.overlay({"oryx.monitoring.quality.sample-rate": rate}))
 
 
 # ---------------------------------------------------------------------------
@@ -894,7 +1048,8 @@ def dispatch_cycle(recs: list, pa, timeline) -> dict:
 
 def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
     """Phase 4 in one score mode: ServingLayer from config, MODEL-REF over
-    the bus, /ready, a burst of /recommend from other processes, /pref to
+    the bus, /ready, a burst of /recommend from other processes (with the
+    quality sampler's reading; quantized: again at 10% and off), /pref to
     the input topic, an UP row served over HTTP."""
     from oryx_tpu_torch.bus import ConsumeDataIterator, get_broker
     from oryx_tpu_torch.common.perfattr import get_perfattr
@@ -911,6 +1066,7 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         batcher = TopKBatcher.shared()
         paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in users]
         d0, c0 = batcher.dispatches, batcher.coalesced
+        mark = quality_mark()  # the sampler at the layer's default rate
         t_burst, t_wall = time.monotonic(), time.time()
         T.reset_launches()  # the main path's window opens
         rows = http_burst(port, paths)
@@ -963,6 +1119,23 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         budget = healthz.get("latency_budget", {}).get("phases", {})
         check("queue_wait" in budget and "device" in budget,
               f"latency budget phases {sorted(budget)}")
+        quality = quality_read(port, mode, mark)
+        quality_bursts = []
+        if mode == "quantized":
+            # the same burst with the sampler at 10%, then off: what the
+            # shadow rescoring costs the host-bound dispatcher
+            for rate in (0.1, 0.0):
+                set_sample_rate(config, rate)
+                mark_b = quality_mark()
+                rows_b = http_burst(port, paths)
+                check(all(r[1] == 200 for r in rows_b),
+                      f"a non-200 answer at sample rate {rate}")
+                wall_b = max(r[3] for r in rows_b) - min(r[2] for r in rows_b)
+                quality_bursts.append({
+                    "qps": len(rows_b) / wall_b,
+                    **quality_read(port, mode, mark_b)})
+            set_sample_rate(config, config.get_float(
+                "oryx.monitoring.quality.sample-rate"))
         capture = None
         if mode == "quantized":
             # one /debug/profile window inside one more burst, untimed
@@ -1021,6 +1194,7 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
             "healthz_occupancy": healthz["occupancy"],
             "slo_burn": healthz["slo_burn"],
             "latency_budget": healthz.get("latency_budget"),
+            "quality": quality, "quality_bursts": quality_bursts,
             "debug_profile": capture,
             "profile": traced,
             "pref_to_input_topic": True, "up_served_after_s": up_s,
@@ -1061,6 +1235,89 @@ def profile_capture(port: int, paths: list[str]) -> dict:
             "dispatch_records": meta["dispatch_records"],
             "by_kind": meta["by_kind"], "torch_trace_path": trace,
             "trace_topk_kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: LSH candidate sampling over HTTP
+# ---------------------------------------------------------------------------
+
+LSH_RATE = 0.3  # upstream Oryx's published setting (BASELINE.md:23)
+LSH_REQUESTS = 512
+LSH_QUALITY_RATE = 0.05  # each LSH sample rescores a fresh 1M x 50 snapshot
+
+
+def lsh_phase(torch, np, T, path, model_data, users, exact_rows) -> dict:
+    """The phase-3 model served with oryx.als.sample-rate = LSH_RATE: the
+    candidate partitions are scored on the host (the mode's design in
+    both packages; no device view is built). LSH_REQUESTS over HTTP, their
+    recall@10 against the exact float64 ranking, the shadow sampler's
+    live recall for "lsh", the same burst's qps with the sampler off, and
+    the partition build's seconds. No recall floor: LSH trades recall for
+    host work by construction."""
+    from oryx_tpu_torch.serving.viewsync import view_sync_metrics
+
+    rebuild = view_sync_metrics()[3]  # oryx_lsh_rebuild_seconds
+    c0, s0 = rebuild.count(), rebuild.sum()
+    layer, config, _b, _t, _u, start_s, ready_s = start_http_layer(
+        "exact", path, extra={"oryx.als.sample-rate": LSH_RATE,
+                              "oryx.monitoring.quality.sample-rate":
+                              LSH_QUALITY_RATE})
+    try:
+        port = layer.port
+        model = layer.model_manager.get_model()
+        check(model._device_view is None and model._partition_view is not None,
+              "the LSH model built a device view or no partition view")
+        lsh = model._lsh
+        sel = list(range(LSH_REQUESTS))
+        paths = [f"/recommend/u{int(users[j])}?howMany={HOW_MANY}" for j in sel]
+        mark = quality_mark()
+        T.reset_launches()
+        rows = http_burst(port, paths)
+        launches = dict(T.LAUNCHES)
+        check(len(rows) == len(paths), f"{len(rows)} answers to {len(paths)}")
+        non_200 = sum(1 for r in rows if r[1] != 200)
+        check(non_200 == 0, f"{non_200} non-200 LSH answers")
+        known = model_data["known_idx"]
+        hits = 0
+        for j, _status, _t0, _t1, ids in rows:
+            check(not set(ids) & {f"i{int(r)}" for r in known[users[j]]},
+                  "a known item was served")
+            hits += len(set(ids) & {f"i{int(r)}" for r in exact_rows[j]})
+        wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+        lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+        quality = quality_read(port, "lsh", mark)
+        check(quality["samples"] > 0, "no LSH answer was shadow-sampled")
+        # the same burst with the sampler off: each LSH sample copies the
+        # whole 1M x 50 store for its exact reference
+        set_sample_rate(config, 0.0)
+        rows_off = http_burst(port, paths)
+        check(all(r[1] == 200 for r in rows_off), "a non-200 LSH answer")
+        wall_off = max(r[3] for r in rows_off) - min(r[2] for r in rows_off)
+        lat_off = sorted((r[3] - r[2]) * 1e3 for r in rows_off)
+        return {
+            "phase": "lsh", "sample_rate": LSH_RATE, "items": N_ITEMS,
+            "hashes": lsh.num_hashes, "partitions": lsh.num_partitions,
+            "max_bits_differing": lsh.max_bits_differing,
+            "candidate_partitions": len(lsh.candidate_indices(
+                model_data["x"][int(users[0])])),
+            "host_scorers": model._num_cores or os.cpu_count(),
+            "start_s": start_s, "ready_s": ready_s,
+            "requests": len(paths), "non_200": non_200,
+            "qps": len(paths) / wall, "wall_s": wall,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "recall_at_10": hits / (HOW_MANY * len(rows)),
+            "quality": quality,
+            "sampler_off": {"qps": len(rows_off) / wall_off,
+                            "p50_ms": lat_off[len(lat_off) // 2],
+                            "p99_ms": lat_off[min(len(lat_off) - 1,
+                                                  int(0.99 * len(lat_off)))]},
+            "lsh_rebuilds": rebuild.count() - c0,
+            "lsh_rebuild_seconds": rebuild.sum() - s0,
+            "launches": launches,
+        }
+    finally:
+        layer.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1372,6 +1629,10 @@ def train_phase(torch, shape=TRAIN_SHAPE, small=SMALL_SHAPE,
 # ---------------------------------------------------------------------------
 
 LAMBDA_USERS = 64          # /recommend probes against the exact top-10
+# the update topic's max message size in the loop: a generation's model
+# message (the ALS skeleton: ids, hyperparameters, training profile; ~80
+# KB at 6,000 users x 3,700 items) goes out as MODEL-CHUNKs + MODEL-REF
+LAMBDA_MAX_MESSAGE = 16 << 10
 SPEED_EVENTS, SPEED_NEW = 20_000, 64
 DELTA_EVENTS = 50_000
 FOLD_RTOL = 1e-4  # relative to the row's largest entry, on top of ...
@@ -1431,6 +1692,27 @@ def served_recall(np, port, model: dict, users: list) -> tuple | None:
     return hits / total, tie_hits / total
 
 
+def generation_served(port: int, layer, generation: int, t0: float,
+                      limit_s: float = 120) -> float:
+    """Seconds from t0 until /healthz names ``generation`` as served and
+    the served view has caught up with the model state."""
+    while time.monotonic() - t0 < limit_s:
+        hz = json.loads(http_get(port, "/healthz")[1])
+        model = layer.model_manager.get_model()
+        if (hz.get("model_generation") == generation and model is not None
+                and model.served_version() == model.state.y.get_version()):
+            return time.monotonic() - t0
+        time.sleep(0.02)
+    raise AssertionError(f"generation {generation} not served in {limit_s} s")
+
+
+def http_json(port: int, path: str, doc: dict) -> dict:
+    """POST a JSON body; the JSON answer (which must be 200)."""
+    status, body = http_get(port, path, "POST", json.dumps(doc).encode())
+    check(status == 200, f"POST {path} answered {status}: {body[:200]}")
+    return json.loads(body)
+
+
 def lambda_phase(torch, np, T, root: Path, device="cuda",
                  shape=SMALL_SHAPE, speed_events=SPEED_EVENTS,
                  delta_events=DELTA_EVENTS) -> dict:
@@ -1441,7 +1723,8 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
     from oryx_tpu_torch.apps.als.speed import ALSSpeedModelManager
     from oryx_tpu_torch.apps.als.state import state_from_arrays
     from oryx_tpu_torch.apps.spi import app_overlay
-    from oryx_tpu_torch.bus import TopicProducer, get_broker, topic_admin
+    from oryx_tpu_torch.bus import (
+        ConsumeDataIterator, TopicProducer, get_broker, topic_admin)
     from oryx_tpu_torch.common.config import load_config
     from oryx_tpu_torch.common.metrics import get_registry
     from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
@@ -1467,6 +1750,8 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
         "oryx.als.compute-dtype": "bfloat16",
         "oryx.serving.min-model-load-fraction": 1.0,
         "oryx.speed.min-model-load-fraction": 1.0,
+        "oryx.update-topic.message.max-size": LAMBDA_MAX_MESSAGE,
+        "oryx.update-topic.artifact-transfer": True,
     })
     cfg = load_config(overlay=overlay)
     topics = {w: cfg.get_string(f"oryx.{w}-topic.message.topic")
@@ -1506,24 +1791,31 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
         check(incremental.value(kind="full") >= 1, "no full build counted")
         batch.close()
 
-        # c. serving on the same topics
+        # c. serving on the same topics, with the batch layer's model
+        # directory moved away: the model reaches it through the artifact
+        # relay alone (the MODEL-CHUNKs ahead of the MODEL-REF)
+        model_root = root / "model"
+        model_root.rename(root / "model-away")
         serving = ServingLayer(
             cfg, model_manager=ALSServingModelManager(cfg, device="cpu")
             if cpu else None)
         layers.append(serving)
         serving.start()
         port = serving.port
-        status = None
-        while time.monotonic() - t_published < 300:
-            status, _ = http_get(port, "/ready")
-            if status == 200:
-                break
-            time.sleep(0.05)
+        wait_ready(port, t_published)
         out["publish_to_ready_s"] = time.monotonic() - t_published
-        check(status == 200, f"/ready answered {status}")
+        (root / "model-away").rename(model_root)
+        with ConsumeDataIterator(get_broker(bus), topics["update"],
+                                 start="earliest") as it:
+            keys = [km.key for km in it.poll_available()]
+        out["relay"] = {"max_message_bytes": LAMBDA_MAX_MESSAGE,
+                        "chunks": keys.count("MODEL-CHUNK"),
+                        "model_refs": keys.count("MODEL-REF"),
+                        "publish_to_ready_s": out["publish_to_ready_s"]}
+        check(keys.count("MODEL-CHUNK") > 1 and keys.count("MODEL-REF") == 1,
+              f"generation 1 was not chunked: {out['relay']}")
 
         # d. /recommend against the exact top-10 of the published factors
-        model_root = root / "model"
         probe = [f"u{int(u)}" for u in np.random.default_rng(SEED).choice(
             np.unique(users), LAMBDA_USERS, replace=False)]
         T.reset_launches()  # the serving leg's window opens
@@ -1619,8 +1911,36 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
             "max_rel_err_vs_plain": worst, "max_abs_diff_vs_plain": worst_abs,
             "new_user_served": True,
         }
+        # the batch stamped its training profile into the artifact and the
+        # speed layer fed this process's live input sketch: the drift
+        # gauges are finite
+        _s, body = http_get(port, "/healthz")
+        quality = json.loads(body)["quality"]
+        out["quality"] = quality
+        drift = quality.get("input_drift", {})
+        check(len(drift) == 3 and all(
+            isinstance(v, (int, float)) for v in drift.values()),
+            f"input drift gauges not finite: {quality}")
         speed.close()
         layers.remove(speed)
+
+        # the model gate: a second serving layer in hold mode replays the
+        # topic (an unarmed gate adopts generation 1), then is armed at it
+        serving.close()
+        layers.remove(serving)
+        gated_cfg = cfg.overlay({"oryx.serving.model-gate.mode": "hold"})
+        t0 = time.monotonic()
+        serving = ServingLayer(
+            gated_cfg, model_manager=ALSServingModelManager(
+                gated_cfg, device="cpu") if cpu else None)
+        layers.append(serving)
+        serving.start()
+        port = serving.port
+        wait_ready(port, t0)
+        gate = {"ready_s": time.monotonic() - t0,
+                "arm": http_json(port, "/control/model/approve",
+                                 {"generation": ts})}
+        check(gate["arm"]["generation"] == ts, f"gate not armed: {gate}")
 
         # g. a delta generation in a fresh batch layer (a restart: the
         # snapshot and the warm-start factors come from disk)
@@ -1650,19 +1970,48 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
         check(warm == [True], f"no warm start from the model dir: {warm}")
         batch.close()
 
-        # h. serving takes the new generation
-        model2 = published_factors(np, model_root, ts + 1)
+        # h. the gate holds the new generation's MODEL-REF; approve adopts
+        # it and a rollback re-adopts generation 1's. The ALS model
+        # message is a skeleton (ids, hyperparameters, the training
+        # profile): the factor rows stream as UP rows, which the gate
+        # does not hold, so each step's recall is printed against both
+        # generations' factors
         t0 = time.monotonic()
-        recall2 = None
         while time.monotonic() - t0 < 120:
-            got = served_recall(np, port, model2, probe)
-            recall2 = None if got is None else got[1]
-            if recall2 == 1.0:
+            held = json.loads(http_get(port, "/healthz")[1])
+            if held.get("model_gate", {}).get("pending_generation") == ts + 1:
                 break
-            time.sleep(0.1)
-        out["generation_2_served_after_s"] = time.monotonic() - t0
+            time.sleep(0.05)
+        check(held["model_gate"]["pending_generation"] == ts + 1
+              and held["model_generation"] == ts,
+              f"generation 2 not held: {held.get('model_gate')}")
+        gate["held"] = held["model_gate"]
+        models = {g: published_factors(np, model_root, g) for g in (ts, ts + 1)}
+
+        def recalls() -> dict:
+            got = {f"vs_generation_{g - ts + 1}": served_recall(
+                np, port, m, probe) for g, m in models.items()}
+            return {k: None if v is None else v[1] for k, v in got.items()}
+
+        gate["recall_at_10_held"] = recalls()
+        for step, target, doc in (
+                ("approve", ts + 1, {"generation": ts + 1}),
+                ("rollback", ts, {"reason": "smoke"})):
+            t0 = time.monotonic()
+            gate[step] = http_json(port, f"/control/model/{step}", doc)
+            gate[f"{step}_post_s"] = time.monotonic() - t0
+            gate[f"{step}_to_served_s"] = generation_served(
+                port, serving, target, t0)
+            gate[f"recall_at_10_after_{step}"] = recalls()
+        recall2 = gate["recall_at_10_after_approve"]["vs_generation_2"]
+        out["generation_2_served_after_s"] = gate["approve_to_served_s"]
         out["recall_at_10_generation_2"] = recall2
         check(recall2 == 1.0, f"generation 2 not served: recall {recall2}")
+        gate["healthz"] = json.loads(http_get(port, "/healthz")[1])["model_gate"]
+        out["gate"] = gate
+        check(gate["healthz"]["vetoed"] == [ts + 1]
+              and gate["healthz"]["generations"] == [ts],
+              f"gate after rollback: {gate['healthz']}")
         if device == "cuda":
             torch.cuda.synchronize()
         out["launches"] = dict(T.LAUNCHES)  # ... and closes
@@ -2310,8 +2659,21 @@ def main() -> int:
     emit({"phase": "kernels-done", "checks": len(lines),
           "seconds": time.monotonic() - t0})
 
-    t0 = time.monotonic()
+    # every artifact the relay assembles lands inside the checkout
+    from oryx_tpu_torch.common.artifact import reset_artifact_relay
+
+    shutil.rmtree(SMOKE_BUILD / "smoke-relay", ignore_errors=True)
+    reset_artifact_relay(SMOKE_BUILD / "smoke-relay")
+
     serving = {}
+    t0 = time.monotonic()
+    gated = gate_phase(torch, np, T)
+    gated["seconds"] = time.monotonic() - t0
+    emit(gated)
+    serving["gate"] = gated
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="oryx-smoke-") as tmp:
         path, model_data = write_model(np, Path(tmp))
         emit({"phase": "model-written", "seconds": time.monotonic() - t0})
@@ -2331,6 +2693,10 @@ def main() -> int:
             emit(served)
             serving["http-" + mode] = served
         emit({"phase": "http-done", "seconds": time.monotonic() - t0})
+        t0 = time.monotonic()
+        sampled = lsh_phase(torch, np, T, path, model_data, users, exact_rows)
+        sampled["seconds"] = time.monotonic() - t0
+        emit(sampled)
         t0 = time.monotonic()
         wedged = wedge_phase(torch, np, path, users)
         wedged["seconds"] = time.monotonic() - t0
@@ -2354,6 +2720,7 @@ def main() -> int:
     serving["lambda"] = loop
     TopKBatcher.shared().close()
     torch.cuda.empty_cache()
+    shutil.rmtree(SMOKE_BUILD / "smoke-relay", ignore_errors=True)
 
     for name, phase in (("kmeans", kmeans_phase), ("rdf", rdf_phase)):
         t0 = time.monotonic()

@@ -28,35 +28,75 @@ from oryx_tpu_torch.common.config import Config
 _log = logging.getLogger(__name__)
 
 
-def _note_model_freshness(key: str | None, loaded: bool) -> None:
+def _note_model_freshness(
+    key: str | None,
+    loaded: bool,
+    parked: bool = False,
+    message: str | None = None,
+) -> None:
     """Feed the model-freshness tracker (common/freshness.py) after a
     MODEL/MODEL-REF dispatch — no-op for other keys, and NEVER lets its
-    own failure escape into the update-listener thread."""
+    own failure (e.g. a metric registration collision at tracker
+    construction) escape into the update-listener thread, which must
+    survive anything per _dispatch_update's isolation contract. `parked`
+    marks a MODEL-REF awaiting a late artifact: its stamp is held for the
+    re-dispatched load instead of dropped."""
     if key not in ("MODEL", "MODEL-REF"):
         return
     try:
         from oryx_tpu_torch.common.freshness import model_freshness
 
         if loaded:
-            model_freshness().note_loaded()
+            model_freshness().note_loaded(key, message=message)
         else:
             # the model did NOT load: its stamp must not claim an earlier
-            # successful load
-            model_freshness().note_load_failed()
+            # successful load (but a parked one may be claimed later)
+            model_freshness().note_load_failed(parked=parked, message=message)
     except Exception:  # pragma: no cover - defensive
         _log.exception("model freshness hook failed")
 
 
 def _dispatch_update(handler, km: KeyMessage) -> None:
     """Per-message dispatch with error isolation: a poison message must not
-    kill the listener (it would replay the same message forever and freeze
-    the model). MODEL/MODEL-REF I/O failures may be transient, so OSError
-    retries briefly; parse/validation errors are logged and skipped.
+    kill the listener thread (it replays from earliest on restart and would
+    hit the same message forever, freezing the model). MODEL/MODEL-REF I/O
+    failures may be transient (MODEL-REF points at shared storage that can
+    lag the publish), so only OSError retries — briefly, because replay
+    also walks MODEL-REFs whose artifacts were TTL-pruned long ago, and
+    every sleep here multiplies across that history. Parse/validation
+    errors are deterministic and never retried."""
+    if km.key == "MODEL-CHUNK":
+        # framework-level artifact transfer (common/artifact.py
+        # ArtifactRelay): assembled here so every app manager can resolve
+        # a MODEL-REF without a shared filesystem; app handlers never see
+        # the chunks
+        from oryx_tpu_torch.common.artifact import artifact_relay
 
-    ``TRACE`` publish stamps (common/freshness.py) feed the freshness
-    metrics and never reach the handler. The JAX package's MODEL-CHUNK
-    relay and model gate are not ported yet (ROADMAP queue 1)."""
+        try:
+            artifact_relay().offer(km.message)
+        except Exception:
+            _log.exception("ignoring bad MODEL-CHUNK message")
+        return
+    if km.key in ("MODEL", "MODEL-REF", "TRACE"):
+        # staged-adoption gate (common/modelgate.py): on a canary or
+        # held replica the gate buffers each model until its stamp names
+        # a generation, then adopts/holds/refuses it. Off (the default)
+        # this is one attribute read; a consumed message is the gate's
+        # to deliver later through _dispatch_model below.
+        from oryx_tpu_torch.common.modelgate import get_model_gate
+
+        gate = get_model_gate()
+        if gate.active:
+            try:
+                if gate.offer(handler, km):
+                    return
+            except Exception:  # pragma: no cover - defensive
+                _log.exception("model gate failed; dispatching ungated")
     if km.key == "TRACE":
+        # framework-level publish stamp (common/freshness.py): follows its
+        # MODEL/MODEL-REF on the update topic and feeds the
+        # oryx_update_to_serve_seconds / oryx_model_staleness_seconds
+        # metrics; app handlers never see it
         from oryx_tpu_torch.common.freshness import model_freshness
 
         try:
@@ -64,11 +104,19 @@ def _dispatch_update(handler, km: KeyMessage) -> None:
         except Exception:
             _log.exception("ignoring bad TRACE publish stamp")
         return
+    _dispatch_model(handler, km)
+
+
+def _dispatch_model(handler, km: KeyMessage) -> None:
+    """The retry/park/freshness leg of _dispatch_update, factored out so
+    the model gate can deliver an adopted generation through the exact
+    same machinery (and a parked MODEL-REF's late re-dispatch re-enters
+    HERE, below the gate — the gate already decided to adopt it)."""
     retries = 3 if km.key in ("MODEL", "MODEL-REF") else 0
     for attempt in range(retries + 1):
         try:
             handler(km.key, km.message)
-            _note_model_freshness(km.key, loaded=True)
+            _note_model_freshness(km.key, loaded=True, message=km.message)
             return
         except OSError:
             if attempt < retries:
@@ -78,11 +126,39 @@ def _dispatch_update(handler, km: KeyMessage) -> None:
                 )
                 time.sleep(0.2 * (attempt + 1))
             else:
-                _log.exception("giving up on update message (key=%r)", km.key)
+                parked = False
+                if km.key == "MODEL-REF":
+                    # park ONLY when the artifact itself is unresolvable
+                    # (chunk stream in flight, sha-mismatch republish) —
+                    # a handler failing for its own reasons with a
+                    # resolvable artifact must not re-fire immediately
+                    # and loop (park re-checks resolvability on entry)
+                    from oryx_tpu_torch.common.artifact import artifact_relay
+
+                    relay = artifact_relay()
+                    try:
+                        relay.resolve(km.message)
+                    except OSError:
+                        _log.warning(
+                            "MODEL-REF %r unresolved after retries; parked "
+                            "for re-dispatch on late artifact arrival",
+                            km.message,
+                        )
+                        relay.park(
+                            km.message, lambda: _dispatch_model(handler, km)
+                        )
+                        parked = True
+                if not parked:
+                    _log.exception(
+                        "giving up on update message (key=%r)", km.key
+                    )
+                _note_model_freshness(
+                    km.key, loaded=False, parked=parked, message=km.message,
+                )
         except Exception:
+            _note_model_freshness(km.key, loaded=False, message=km.message)
             _log.exception("ignoring bad update message (key=%r)", km.key)
-            break
-    _note_model_freshness(km.key, loaded=False)
+            return
 
 
 class BatchLayerUpdate(ABC):

@@ -11,11 +11,10 @@ EnqueueFeatureVecsFn pattern at ALSUpdate.java:286-318), and split
 train/test by time instead of randomly (ALSUpdate.java:325-342).
 
 Factors come back to the host as numpy float32 before the artifact is
-built, so the artifact is the JAX package's, byte for byte. Not ported:
-the training profile the JAX package stamps into the artifact
-(``_attach_quality_profile``, common/qualitystats.py, the quality plane of
-ROADMAP queue 1 item 4; a model without one reads as NaN drift in the JAX
-serving layer) and multi-device training (item 11).
+built, so the artifact is the JAX package's, byte for byte, with the
+training profile (``qualityProfile``, common/qualitystats.py) the serving
+and speed tiers measure drift against. Not ported: multi-device training
+(ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -232,6 +231,7 @@ class ALSUpdate(MLUpdate):
         t_merge = time.monotonic()
         train_msgs, test_msgs = self.split_train_test(list(new_data))
         users, items, vals, tss = self._parse_to_str(train_msgs)
+        self._window_tss = tss  # event-rate input of the quality profile
         if pending is not None and len(pending[2]):
             # the previous generation's holdout is persisted history the
             # from-scratch path would train on: fold it in now
@@ -493,6 +493,7 @@ class ALSUpdate(MLUpdate):
         users, items, vals, tss = parse_events(data)
         if len(vals) == 0:
             raise ValueError("no parseable interactions")
+        self._window_tss = tss  # event-rate input of the quality profile
         return aggregate_interactions(
             users, items, vals, tss,
             implicit=self.als.implicit,
@@ -559,6 +560,7 @@ class ALSUpdate(MLUpdate):
         )
         art.set_extension("XIDs", m.user_ids)
         art.set_extension("YIDs", m.item_ids)
+        self._attach_quality_profile(art, m, agg)
         # knownItems per user ride with the X rows at publish time.
         # Vectorized grouping: a per-pair Python dict loop costs ~20s at
         # the 25M-interaction benchmark scale (measured 3x slower than
@@ -575,6 +577,43 @@ class ALSUpdate(MLUpdate):
                 for c, e in zip(cut, ends)
             }
         return art
+
+    def _attach_quality_profile(self, art: ModelArtifact, m, agg) -> None:
+        """Stamp the generation's training profile (item-popularity
+        sketch, event rate, new-item fraction, predicted-score
+        distribution) into the artifact so the serving/speed tiers can
+        measure drift against what this model actually trained on. Never
+        fails a build — a generation without a profile just reads NaN
+        drift."""
+        try:
+            from oryx_tpu_torch.common.qualitystats import build_training_profile
+
+            counts = np.bincount(
+                agg.items, minlength=agg.n_items
+            ).astype(np.float64)
+            scores = None
+            x, y = np.asarray(m.x), np.asarray(m.y)
+            if len(x) and len(y):
+                # the LIVE side of prediction drift is the mean of served
+                # top-k scores (an extreme order statistic), so the
+                # baseline must be the SAME statistic — mean top-10 score
+                # of sampled training users over the full catalog — or a
+                # perfectly healthy model reads as drifted forever
+                rng = np.random.default_rng(7)
+                us = rng.integers(0, len(x), 32)
+                k = min(10, len(y))
+                full = x[us] @ y.T  # (32, n_items), a few GFLOP at 1M rows
+                part = -np.partition(-full, k - 1, axis=1)[:, :k]
+                scores = part.mean(axis=1)
+            profile = build_training_profile(
+                agg.item_ids, counts,
+                timestamps_ms=getattr(self, "_window_tss", None),
+                prev_item_ids=self._prev_item_ids,
+                scores=scores,
+            )
+            art.set_extension("qualityProfile", profile.to_json())
+        except Exception:  # noqa: BLE001 - the profile must never fail a build
+            log.warning("quality profile build failed", exc_info=True)
 
     def eval_metric_name(self) -> str:
         # implicit feedback evaluates mean per-user AUC; explicit a

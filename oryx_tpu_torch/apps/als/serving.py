@@ -8,16 +8,27 @@ thread pool; here the whole Y store is one device matrix and top-N is one
 coalesced fused score + top-k dispatch (serving/batcher.py -> ops/topk.py),
 followed by an exact f32 re-rank of the candidates on the host.
 
+With ``oryx.als.sample-rate < 1`` the model serves the reference's LSH
+candidate sampling instead, as the JAX package does: the partition blocks
+within the Hamming ball of the query's partition (apps/als/lsh.py) are
+scored on the host, under a core-sized semaphore. That is the configured
+mode's own semantics, not a fallback: it runs only when configured, and no
+device failure ever routes a request there (a wedged card answers 503).
+No device view is built in that mode.
+
+A configured fraction of final answers (``oryx.monitoring.quality.
+sample-rate``) is offered to the live quality sampler
+(common/qualitystats.py), which rescores it exactly off the request path.
 Every resync reports into the shared ``oryx_device_sync_*`` /
 ``oryx_view_resync_total`` families (serving/viewsync.py) and, with tracing
-on, a ``view.resync`` span. Not ported yet: LSH candidate sampling
-(sample-rate < 1, ROADMAP queue 1 item 4), shadow quality sampling (item
-4), sharded and chunked views (item 11).
+on, a ``view.resync`` span. Not ported yet: sharded and chunked views
+(ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -31,7 +42,7 @@ from oryx_tpu_torch.apps.als.common import ALSConfig
 from oryx_tpu_torch.apps.als.state import ALSState, apply_update_message
 from oryx_tpu_torch.common.classutil import load_instance_of
 from oryx_tpu_torch.common.config import Config
-from oryx_tpu_torch.common.tracing import get_tracer
+from oryx_tpu_torch.common.tracing import current_span, get_tracer
 from oryx_tpu_torch.device import resolve_device
 from oryx_tpu_torch.ops.als import compute_updated_xu
 from oryx_tpu_torch.ops.topk import check_features
@@ -55,6 +66,9 @@ from oryx_tpu_torch.serving.viewsync import (
 )
 
 log = logging.getLogger(__name__)
+
+# Max LSH partition-rebuild frequency under live update ingestion.
+_LSH_REFRESH_SEC = 1.0
 
 # Background resync poll interval: the thread also wakes immediately on
 # _request_resync, so this only bounds how long a pure speed-layer write
@@ -129,6 +143,20 @@ class SyncConfig:
         return SyncConfig(mode, headroom, frac)
 
 
+class _LshPartitions:
+    """Per-partition contiguous scoring blocks for the LSH host path:
+    rows[p] maps block rows back to store rows, mats[p] is the contiguous
+    factor block, norms[p] its row norms (for cosine queries). One matched
+    snapshot, rebuilt with the partition view."""
+
+    __slots__ = ("rows", "mats", "norms")
+
+    def __init__(self, rows, mats, norms):
+        self.rows = rows
+        self.mats = mats
+        self.norms = norms
+
+
 def _normalize_rows(a: torch.Tensor) -> torch.Tensor:
     """The cosine view of an item view: unit rows, pitched like ``a``."""
     af = a.float()
@@ -144,6 +172,9 @@ class ALSServingModel(ServingModel):
         sync: SyncConfig | None = None,
         score_mode: str = "exact",
         device=None,
+        sample_rate: float = 1.0,
+        num_cores: int | None = None,
+        lsh_max_bits_differing: int | None = None,
     ):
         self.state = state
         self.device = resolve_device(device)
@@ -177,6 +208,24 @@ class ALSServingModel(ServingModel):
         self._stop = threading.Event()
         # last completed resync: {kind, rows, bytes, seconds, version}
         self.last_resync: dict | None = None  # guarded-by: _sync_lock (writes)
+        # LSH candidate sampling (sample_rate < 1): the partition view is
+        # built in place of the device view
+        self.sample_rate = sample_rate
+        self._num_cores = num_cores
+        self._lsh_max_bits = lsh_max_bits_differing
+        self._lsh = None  # guarded-by: _sync_lock (writes)
+        # (ids, parts, version, _LshPartitions) — no flat matrix copy: the
+        # partition blocks inside _LshPartitions are the snapshot
+        self._partition_view: tuple | None = None  # guarded-by: _sync_lock (writes)
+        self._partition_built_at = 0.0  # guarded-by: _sync_lock (writes)
+        # Host LSH scoring gates on a core-sized semaphore: each request
+        # dots O(sample_rate·N·F) of partition blocks, and unbounded
+        # request concurrency would multiply that working set by the
+        # thread count. Cores-many scorers keep the CPUs busy with bounded
+        # memory; the rest queue.
+        self._host_score_sem = threading.Semaphore(
+            max(1, num_cores if num_cores else (os.cpu_count() or 1))
+        )
 
     def close(self) -> None:
         """Stop the background resync thread (the manager calls this when
@@ -202,18 +251,109 @@ class ALSServingModel(ServingModel):
         return None if view is None else view[2]
 
     def fraction_loaded(self) -> float:
-        """The announced model's loaded fraction, and 0 until the scoring
-        view exists on the model's device: the manager builds it on the
-        update listener's thread, so /ready never answers 200 for a model
-        whose first request would have to build it."""
-        if self._device_view is None:
+        """The announced model's loaded fraction, and 0 until its scoring
+        view exists (the device view, or with LSH the partition view): the
+        manager builds it on the update listener's thread, so /ready never
+        answers 200 for a model whose first request would have to build
+        it."""
+        if self._scoring_view() is None:
             return 0.0
         return self.state.fraction_loaded()
 
+    def _scoring_view(self) -> tuple | None:
+        """The view queries score against: the LSH partition view when
+        sample_rate < 1, else the device view (None before its build)."""
+        return self._partition_view if self.sample_rate < 1.0 else self._device_view
+
     def build_views(self) -> None:
-        """Build the device scoring view now instead of on the first
-        query."""
-        self._y_view_full()
+        """Build the scoring view now instead of on the first query: the
+        device view, or with LSH the host partition view."""
+        if self.sample_rate < 1.0:
+            self._lsh_index()
+        else:
+            self._y_view_full()
+
+    # -- LSH partition view (sample_rate < 1) ------------------------------
+
+    def _ensure_lsh(self):
+        from oryx_tpu_torch.apps.als.lsh import LocalitySensitiveHash
+
+        if self._lsh is None:
+            with self._sync_lock:
+                if self._lsh is None:
+                    self._lsh = LocalitySensitiveHash(
+                        self.sample_rate, self.state.features, self._num_cores,
+                        max_bits_differing=self._lsh_max_bits,
+                    )
+        return self._lsh
+
+    def _build_partition_view(self) -> tuple:  # oryxlint: holds=_sync_lock
+        """Full LSH re-partition from a store snapshot — O(N.H.F) plus the
+        O(N.F) snapshot copy, so its cost is recorded (lsh.rebuild span +
+        oryx_lsh_rebuild_seconds). Call under _sync_lock."""
+        t0 = time.monotonic()
+        mat, ids, version = self.state.y.snapshot()
+        mat = np.asarray(mat, dtype=np.float32)
+        parts = self._lsh.indices_for(mat)
+        # partition -> (row indices, contiguous block, norms), grouped
+        # once per snapshot: the query path touches only candidate
+        # partitions — no O(N) isin scan and no per-request gather
+        order = np.argsort(parts, kind="stable")
+        sorted_parts = parts[order]
+        bounds = np.searchsorted(
+            sorted_parts, np.arange(self._lsh.num_partitions + 1)
+        )
+        rows_by_part = [
+            order[bounds[p]:bounds[p + 1]]
+            for p in range(self._lsh.num_partitions)
+        ]
+        mats = [np.ascontiguousarray(mat[r]) for r in rows_by_part]
+        pindex = _LshPartitions(
+            rows=rows_by_part,
+            mats=mats,
+            norms=[np.linalg.norm(m, axis=1) for m in mats],
+        )
+        # the partition blocks are a complete copy of the store: no flat
+        # matrix is kept beside them
+        view = (ids, parts, version, pindex)
+        self._partition_view = view
+        self._partition_built_at = time.monotonic()
+        view_sync_metrics()[3].observe(time.monotonic() - t0)
+        tr = get_tracer()
+        if tr.enabled:
+            tr.record_interval(
+                "lsh.rebuild", t0, rows=len(ids), version=version,
+            )
+        return view
+
+    def _lsh_index(self):
+        """(lsh, ids, partitions-per-row, partition index) — ONE matched
+        snapshot: id list, partition assignment and partition blocks all
+        from the same store version. In the background sync modes a stale
+        view is served as-is and the resync thread reassigns only DIRTY
+        rows between partitions (full re-partitions only on drift
+        overflow, at most once per refresh window); blocking mode rebuilds
+        inline, rate-limited to once per refresh window."""
+        self._ensure_lsh()
+        view = self._partition_view
+        version = self.state.y.get_version()
+        if view is not None and view[2] == version:
+            return self._lsh, view[0], view[1], view[3]
+        if view is not None and self.sync.mode != "blocking":
+            # serve the previous consistent snapshot; catch up off-path
+            self._request_resync()
+            return self._lsh, view[0], view[1], view[3]
+        now = time.monotonic()
+        if view is None or now - self._partition_built_at >= _LSH_REFRESH_SEC:
+            with self._sync_lock:
+                view = self._partition_view
+                if view is None or (
+                    view[2] != self.state.y.get_version()
+                    and time.monotonic() - self._partition_built_at
+                    >= _LSH_REFRESH_SEC
+                ):
+                    view = self._build_partition_view()
+        return self._lsh, view[0], view[1], view[3]
 
     # -- device scoring view ----------------------------------------------
 
@@ -346,11 +486,15 @@ class ALSServingModel(ServingModel):
         self._resync_evt.set()
 
     def _views_stale(self) -> bool:
+        v = self.state.y.get_version()
         dv = self._device_view
-        if dv is not None and dv[2] != self.state.y.get_version():
+        if dv is not None and dv[2] != v:
             return True
         uv = self._unit_view
-        return dv is not None and uv is not None and uv[2] != dv[2]
+        if dv is not None and uv is not None and uv[2] != dv[2]:
+            return True
+        pv = self._partition_view
+        return pv is not None and pv[2] != v
 
     def _resync_loop(self) -> None:
         while not self._stop.is_set():
@@ -360,26 +504,43 @@ class ALSServingModel(ServingModel):
                 return
             try:
                 while not self._stop.is_set() and self._views_stale():
-                    self._resync_once()
+                    if not self._resync_once():
+                        break  # rate-limited: retry on the next poll tick
             except Exception:
                 log.exception("background view resync failed")
                 # don't spin on a persistent failure (e.g. device OOM);
                 # queries keep serving the last consistent snapshot
                 time.sleep(0.5)
 
-    def _resync_once(self) -> None:
+    def _resync_once(self) -> bool:
         """Bring every materialized view up to the current store version:
         dirty-row deltas when the drift is small (mode delta), snapshot
         rebuilds otherwise. Swaps are atomic tuple stores under
-        _sync_lock."""
+        _sync_lock. Returns False when the only remaining work is a
+        rate-limited LSH re-partition (the caller backs off instead of
+        spinning on the limiter)."""
+        progress = False
         with self._sync_lock:
             dv = self._device_view
             if dv is not None and dv[2] != self.state.y.get_version():
                 if not (self.sync.mode == "delta" and self._try_apply_delta(dv)):
                     self._build_views_full()
+                progress = True
             dv, uv = self._device_view, self._unit_view
             if dv is not None and uv is not None and uv[2] != dv[2]:
                 self._build_unit_view(*dv)
+                progress = True
+            pv = self._partition_view
+            if pv is not None and pv[2] != self.state.y.get_version():
+                if self.sync.mode == "delta" and self._try_partition_delta(pv):
+                    progress = True
+                # full re-partition is O(N.H.F): rate-limited so a
+                # delta-overflow storm can't spin it back-to-back
+                elif (time.monotonic() - self._partition_built_at
+                        >= _LSH_REFRESH_SEC):
+                    self._build_partition_view()
+                    progress = True
+        return progress
 
     def _try_apply_delta(self, dv: tuple) -> bool:  # holds _sync_lock
         """Apply a dirty-row delta to the device/host/unit views. Returns
@@ -450,11 +611,148 @@ class ALSServingModel(ServingModel):
         )
         return True
 
+    def _try_partition_delta(self, pv: tuple) -> bool:  # oryxlint: holds=_sync_lock
+        """Reassign only dirty rows between LSH partitions instead of
+        re-partitioning the whole store. Touched partitions get rebuilt
+        contiguous blocks; untouched partitions share their arrays with
+        the previous view. Call under _sync_lock."""
+        ids, parts, _version, pindex = pv
+        n_old = len(ids)
+        delta = self.state.y.delta_since(
+            pv[2],
+            max_rows=max(1, int(self.sync.max_delta_fraction * max(n_old, 1))),
+        )
+        if delta is None:
+            return False
+        if delta.rows.size == 0:
+            return True
+        t0 = time.monotonic()
+        rows, mat_rows = delta.rows, delta.mat
+        ids = extend_view_ids(ids, delta)
+        if ids is None:
+            return False
+        new_parts_of_dirty = self._lsh.indices_for(
+            np.ascontiguousarray(mat_rows, dtype=np.float32)
+        )
+        parts = np.concatenate([parts, np.zeros(delta.n - n_old, dtype=parts.dtype)]) \
+            if delta.n > n_old else parts.copy()
+        old_parts_of_dirty = parts[rows]
+        parts[rows] = new_parts_of_dirty
+        touched = set(int(p) for p in old_parts_of_dirty[rows < n_old]) | set(
+            int(p) for p in new_parts_of_dirty
+        )
+        new_rows = list(pindex.rows)
+        new_mats = list(pindex.mats)
+        new_norms = list(pindex.norms)
+        vec_of = {int(r): mat_rows[j] for j, r in enumerate(rows)}
+        dirty_set = set(int(r) for r in rows)
+        for p in touched:
+            old_block_rows = pindex.rows[p]
+            keep = ~np.isin(old_block_rows, rows)
+            kept_rows = old_block_rows[keep]
+            kept_mat = pindex.mats[p][keep]
+            add = np.asarray(
+                sorted(r for r in dirty_set if parts[r] == p), dtype=np.int64
+            )
+            if add.size:
+                add_mat = np.stack([vec_of[int(r)] for r in add])
+                block_rows = np.concatenate([kept_rows, add])
+                block_mat = np.ascontiguousarray(
+                    np.concatenate([kept_mat, add_mat.astype(np.float32)])
+                )
+            else:
+                block_rows, block_mat = kept_rows, np.ascontiguousarray(kept_mat)
+            new_rows[p] = block_rows
+            new_mats[p] = block_mat
+            new_norms[p] = np.linalg.norm(block_mat, axis=1)
+        self._partition_view = (
+            ids, parts, delta.version,
+            _LshPartitions(rows=new_rows, mats=new_mats, norms=new_norms),
+        )
+        # no device traffic: pure host reindex — recorded as a delta
+        # resync with zero sync bytes so view freshness is still visible
+        self._note_resync(
+            "delta", int(rows.size), 0, time.monotonic() - t0, delta.version,
+        )
+        return True
+
     # -- queries -----------------------------------------------------------
+
+    def _shadow_sample(
+        self, vec, pairs, how_many, exclude, cosine, mode, trace_id,
+        snapshot_fn,
+    ) -> None:
+        """Offer this served response to the live quality sampler
+        (common/qualitystats.py): a config-gated fraction is re-scored
+        exactly on the sampler's drain thread. Called AFTER the response
+        is final, on the post pool / host-path caller thread — never the
+        batcher dispatcher — and rescorer-filtered responses are skipped
+        (their exact reference would need the rescorer replayed)."""
+        from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+        get_qualitystats().maybe_sample(
+            vec, pairs, how_many=how_many, exclude=exclude, cosine=cosine,
+            score_mode=mode, trace_id=trace_id, snapshot_fn=snapshot_fn,
+        )
+
+    def _lsh_top_n(self, user_vector, how_many, exclude, rescorer, cosine,
+                   trace_id) -> list[tuple[str, float]]:
+        """LSH candidate sampling: score only items whose partition is
+        within the Hamming ball of the query's (the reference's
+        candidate-partition fan-out, ALSServingModel.java:264-279), on the
+        host, gated by the core-sized scoring semaphore (bounded memory
+        under load). Ids, partitions and blocks are one matched snapshot
+        from _lsh_index."""
+        lsh, ids, _parts, pindex = self._lsh_index()
+        if not ids:
+            return []
+        k = min(len(ids), how_many + len(exclude) + 8)
+        cand_parts = [
+            int(p) for p in lsh.candidate_indices(user_vector)
+            if pindex.rows[int(p)].size
+        ]
+        if not cand_parts:
+            return []
+        q = np.asarray(user_vector, dtype=np.float32)
+        with self._host_score_sem:
+            # dot each candidate partition's contiguous block; the
+            # per-partition scores and row maps concatenate into one
+            # ranking problem
+            scores = np.concatenate([pindex.mats[p] @ q for p in cand_parts])
+            rows = np.concatenate([pindex.rows[p] for p in cand_parts])
+            if cosine:
+                norms = np.concatenate([pindex.norms[p] for p in cand_parts])
+                scores = scores / np.maximum(norms, 1e-12)
+            kk = min(k, rows.size)
+            top = np.argpartition(-scores, kk - 1)[:kk]
+            top = top[np.argsort(-scores[top])]
+            vals, idx = scores[top], rows[top]
+        pairs = _trim_pairs(vals, idx, ids, how_many, exclude, rescorer)
+        if rescorer is None and pairs:
+            # LSH live recall: the exact reference is a fresh full-store
+            # snapshot, taken on the sampler's drain thread
+            store = self.state.y
+
+            def lsh_snapshot():
+                mat, snap_ids, _v = store.snapshot()
+                return np.asarray(mat, dtype=np.float32), snap_ids, len(snap_ids)
+
+            self._shadow_sample(
+                user_vector, pairs, how_many, exclude, cosine, "lsh",
+                trace_id, lsh_snapshot,
+            )
+        return pairs
 
     def _top_n_plan(self, user_vector, how_many, exclude, rescorer, cosine):
         """Shared front half of top_n/top_n_async: ("done", pairs) when
-        nothing needs scoring, or ("fut", batcher_future, post_fn)."""
+        the answer is complete on this thread (nothing to score, or LSH
+        host scoring), or ("fut", batcher_future, post_fn)."""
+        span = current_span()
+        trace_id = span.trace_id if span is not None else None
+        if self.sample_rate < 1.0:
+            return "done", self._lsh_top_n(
+                user_vector, how_many, exclude, rescorer, cosine, trace_id
+            )
         if cosine:
             y, ids, host_mat = self._y_unit_view()
         else:
@@ -476,7 +774,16 @@ class ALSServingModel(ServingModel):
             # the candidate set are re-ranked EXACTLY against the
             # row-aligned f32 host matrix
             vals, idx = _rerank_exact(user_vector, vals, idx, host_mat, cosine)
-            return _trim_pairs(vals, idx, ids, how_many, exclude, rescorer)
+            pairs = _trim_pairs(vals, idx, ids, how_many, exclude, rescorer)
+            if rescorer is None and pairs:
+                # device-path live recall: the exact reference is the
+                # row-aligned host mirror the response was re-ranked
+                # against (no copy; the drain reads it by reference)
+                self._shadow_sample(
+                    user_vector, pairs, how_many, exclude, cosine,
+                    self.score_mode, trace_id, lambda: (host_mat, ids, n),
+                )
+            return pairs
 
         return "fut", fut, _post
 
@@ -583,7 +890,17 @@ class ALSServingModel(ServingModel):
         return out[:how_many]
 
     def representative_items(self, how_many: int) -> list[str]:
-        """An even stride over the store: a diverse item sample."""
+        """A spread of items across the factor space. With LSH enabled this
+        is the reference's one-item-per-partition sample
+        (PopularRepresentativeItems), entirely on the host; otherwise an
+        even stride over the store serves the same diverse-sample
+        purpose."""
+        if self.sample_rate < 1.0:
+            _lsh, ids, parts, _pindex = self._lsh_index()
+            if not ids:
+                return []
+            _, first_rows = np.unique(parts, return_index=True)
+            return [ids[int(r)] for r in first_rows[:how_many]]
         ids = self._y_view_full()[1]
         if not ids:
             return []
@@ -640,11 +957,6 @@ class ALSServingModelManager(AbstractServingModelManager):
         super().__init__(config)
         self.device = resolve_device(device)
         self.als = ALSConfig.from_config(config)
-        if self.als.sample_rate < 1.0:
-            raise ValueError(
-                "oryx.als.sample-rate < 1 (LSH candidate sampling) is not "
-                "ported yet"
-            )
         self.sync = SyncConfig.from_config(config)
         # validated here so a typo fails at startup, not on the first
         # /recommend
@@ -687,8 +999,11 @@ class ALSServingModelManager(AbstractServingModelManager):
                 sync=self.sync,
                 score_mode=self.score_mode,
                 device=self.device,
+                sample_rate=self.als.sample_rate,
+                num_cores=(self.als.candidate_partitions or None),
+                lsh_max_bits_differing=self.als.lsh_max_bits_differing,
             )
-        if (model._device_view is None
+        if (model._scoring_view() is None
                 and state.fraction_loaded() >= self.min_fraction):
             model.build_views()
         if model is not old:

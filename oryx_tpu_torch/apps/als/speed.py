@@ -12,8 +12,9 @@ loaded. The fold-in solves run as one batch of triangular solves on the card
 (ops/als.py ``fold_in_batch``) rather than a parallelStream over
 interactions: the Cholesky factors, the strengths and the gathered vectors
 go up once per micro-batch, the new vectors come back for the messages.
-The JAX package's live input sketch (common/qualitystats.py) is the quality
-plane of ROADMAP queue 1 item 4 and is not fed here.
+Each micro-batch's item events also feed the live input sketch that the
+drift gauges compare with the served generation's training profile
+(common/qualitystats.py).
 """
 
 from __future__ import annotations
@@ -49,6 +50,12 @@ class ALSSpeedModelManager(AbstractSpeedModelManager):
         self.min_fraction = config.get_float("oryx.speed.min-model-load-fraction", 0.8)
         self.state: ALSState | None = None
         self._not_ready_log = RateLimitCheck(60.0)
+        # the speed tier sees the raw event stream: it feeds the live
+        # input sketch the drift gauges compare against the served
+        # generation's training profile (common/qualitystats.py)
+        from oryx_tpu_torch.common.qualitystats import configure_qualitystats
+
+        configure_qualitystats(config)
 
     # -- update-topic consumption ------------------------------------------
 
@@ -79,6 +86,11 @@ class ALSSpeedModelManager(AbstractSpeedModelManager):
         users, items, vals, tss = parse_events(new_data)
         if len(vals) == 0:
             return []
+        # input drift: fold this micro-batch's item events into the live
+        # windowed sketch (one hash per event, micro-batch granularity)
+        from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+        get_qualitystats().note_input_events(items, tss)
         # same strength transform the batch model was trained with — folding
         # raw strengths into a log1p-trained model would overweight them
         agg = aggregate_interactions(

@@ -1,6 +1,5 @@
 """In-memory ALS model state shared by the speed and serving tiers (the
-port's copy of oryx_tpu/apps/als/state.py; adopting the artifact's quality
-profile waits for the quality-telemetry slice).
+port's copy of oryx_tpu/apps/als/state.py).
 
 The reference splits this across ALSSpeedModel (app/oryx-app .../speed/als/
 ALSSpeedModel.java) and ALSServingModel (app/oryx-app-serving .../als/model/
@@ -16,6 +15,7 @@ arena.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import NamedTuple
 
@@ -397,6 +397,29 @@ class ALSState:
         self.recount()
 
 
+def _adopt_quality_profile(art, item_ids) -> None:
+    """Hand the artifact's training profile (qualityProfile extension,
+    stamped by the batch tier) to the live quality tracker so this
+    process's drift gauges compare against the generation it now serves.
+    Best-effort: a model without a profile just reads NaN drift."""
+    try:
+        prof = art.get_extension("qualityProfile", None)
+        if not prof:
+            return
+        from oryx_tpu_torch.common.qualitystats import (
+            TrainingProfile, get_qualitystats,
+        )
+
+        qs = get_qualitystats()
+        qs.set_training_profile(TrainingProfile.from_json(prof))
+        if item_ids:
+            qs.note_catalog(item_ids)
+    except Exception:  # noqa: BLE001 - drift telemetry never fails a model load
+        logging.getLogger(__name__).warning(
+            "could not adopt quality profile", exc_info=True
+        )
+
+
 # ---------------------------------------------------------------------------
 # shared update-topic consumption (speed + serving tiers)
 # ---------------------------------------------------------------------------
@@ -464,6 +487,7 @@ def apply_update_message(
             if with_known_items:
                 for u, items in art.content.get("knownItems", {}).items():
                     state.add_known_items(u, items)
+        _adopt_quality_profile(art, yids)
     elif key == "UP":
         if state is None:
             return None  # updates before any model: nothing to apply to

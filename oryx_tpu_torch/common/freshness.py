@@ -83,15 +83,22 @@ class ModelFreshness:
     TRACE stamp, so ``note_loaded`` fires first (handler succeeded) and the
     stamp that follows claims it — ``note_stamp`` observes the lag only
     when an unclaimed successful load precedes it, so a stamp whose MODEL
-    failed to load records nothing. (The JAX package's handshake for a
-    MODEL-REF parked until its chunked artifact arrives comes with the
-    artifact relay, ROADMAP queue 1 item 3.)
+    failed to load records nothing.
     """
 
     def __init__(self):
         self._lock = threading.Lock()
         self._load_pending = False   # a MODEL/MODEL-REF loaded, stamp not yet seen
         self._load_mono = 0.0        # when that load completed (monotonic)
+        # parked-load handshake: a MODEL-REF whose artifact lags its chunks
+        # is parked for re-dispatch (api.py), so its stamp arrives BEFORE
+        # the load completes — the stamp is held here, KEYED to the parked
+        # message, and claimed only by that model's late load (a different
+        # model loading in between must not claim it)
+        self._parked = False
+        self._parked_msg: str | None = None
+        self._held_stamp: dict | None = None
+        self._held_for: str | None = None
         self.generation: int | None = None
         self.published_ms: float | None = None
         self.loaded_ms: float | None = None
@@ -127,18 +134,47 @@ class ModelFreshness:
 
     # -- hooks (called by oryx_tpu_torch.api._dispatch_update) ------------
 
-    def note_loaded(self) -> None:
-        """A MODEL/MODEL-REF handler completed successfully; the stamp that
-        follows it claims this load."""
+    def note_loaded(self, key: str | None, message: str | None = None) -> None:
+        """A MODEL/MODEL-REF handler completed successfully. Normally its
+        stamp follows and claims this load; a PARKED model loads after its
+        stamp already arrived, so THAT model's held stamp (matched by
+        message) is claimed here instead — a different model loading in
+        the meantime takes the normal pending path and leaves the held
+        stamp for the parked model's re-dispatch."""
         with self._lock:
-            self._load_pending = True
-            self._load_mono = time.monotonic()
+            held = self._held_stamp
+            if held is not None and (
+                self._held_for is None
+                or message is None
+                or message == self._held_for
+            ):
+                self._held_stamp = None
+                self._held_for = None
+                self._parked = False
+                load_mono = time.monotonic()
+            else:
+                self._load_pending = True
+                self._load_mono = time.monotonic()
+                return
+        self._observe(held, load_mono)
 
-    def note_load_failed(self) -> None:
-        """A MODEL/MODEL-REF dispatch gave up: clear any unclaimed load so
-        the failed model's stamp cannot claim an older one."""
+    def note_load_failed(
+        self, parked: bool = False, message: str | None = None
+    ) -> None:
+        """A MODEL/MODEL-REF dispatch did not complete. Given up: clear any
+        unclaimed load so the failed model's stamp cannot claim an older
+        one. Parked (artifact lagging its chunks): remember which message
+        parked, so the stamp about to arrive is HELD for that model's late
+        re-dispatched load instead of dropped — otherwise every
+        chunk-lagged publish would be invisible to the freshness
+        metrics."""
         with self._lock:
             self._load_pending = False
+            self._parked = parked
+            self._parked_msg = message if parked else None
+            if not parked:
+                self._held_stamp = None
+                self._held_for = None
 
     def note_stamp(self, message: str) -> None:
         """A TRACE publish stamp arrived (always right after its model on
@@ -151,6 +187,13 @@ class ModelFreshness:
             claimed = self._load_pending
             self._load_pending = False
             load_mono = self._load_mono
+            if not claimed and self._parked:
+                # the stamped model is parked awaiting its artifact: hold
+                # the stamp for that model's late load (a newer stamp
+                # supersedes an unclaimed one)
+                self._held_stamp = stamp
+                self._held_for = self._parked_msg
+                return
         if not claimed:
             # the stamped model never loaded here (handler gave up):
             # recording a "served" lag for it would be a lie
@@ -185,8 +228,12 @@ class ModelFreshness:
         if quality:
             for metric, value in quality.items():
                 self._g_quality.set(value, metric=metric)
-        # the live-quality windows' generation boundary waits for the
-        # quality plane's port (ROADMAP queue 1 item 4)
+        # generation boundary for the live-quality sample windows: the
+        # shadow recall/score windows describe the OLD generation's
+        # answers and must not be attributed to this one
+        from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+        get_qualitystats().note_generation(self.generation)
         tr = tracing.get_tracer()
         if tr.enabled:
             parent = tracing.parse_traceparent(stamp.get("traceparent"))

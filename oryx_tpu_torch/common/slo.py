@@ -22,11 +22,10 @@ hot path):
   (``replica="none"`` means the client saw the front's own 503). This
   package has no fleet front yet, so the family stays empty and the burn
   reads 0, as the JAX package's does with no front.
-- ``quality``: fraction of shadow-rescored responses whose measured
-  recall held the ``oryx.monitoring.slo.quality.recall-floor``. This
-  package has no shadow sampler yet (the quality plane), so its families
-  stay empty and the burn reads 0, as the JAX package's does with
-  sampling off.
+- ``quality``: fraction of shadow-rescored responses
+  (``common/qualitystats.py``) whose measured recall held the
+  ``oryx.monitoring.slo.quality.recall-floor`` — the live model-quality
+  objective a degraded generation burns.
 
 Exported as ``oryx_slo_burn_rate{slo,window}`` and
 ``oryx_slo_error_budget_remaining{slo}``. A burn rate of 1.0 means
@@ -302,7 +301,7 @@ def ensure_serving_slos(config) -> None:
 
 def _quality_source() -> tuple[float, float]:
     """(shadow samples, samples below the recall floor) — cumulative
-    totals the live quality sampler counts (no series until one exists)."""
+    totals the live quality sampler (common/qualitystats.py) counts."""
     reg = get_registry()
     total = sum(reg.counter("oryx_quality_samples_total").series().values())
     bad = sum(

@@ -4,8 +4,13 @@ same seeds, train on the card, and measure quality — ALS's held-out AUC
 (with NaN factor rows surfaced as a first-class diagnostic), the forest's
 held-out accuracy on a planted rule, and k-means' SSE against the planted
 centers and its silhouette. ``chip_smoke.py`` runs them on the card at the
-bench's shapes. The seq and serving-recall harnesses come with their own
-slices.
+bench's shapes.
+
+The serving recall gate (``evaluate_score_mode_recall``): the quantized
+(int8 + exact rescore) and approx score modes are measured for recall@k
+against the exact top-k on a standing synthetic corpus; either mode below
+``MIN_SCORE_MODE_RECALL`` fails the gate, so speed can never silently buy
+wrong answers. The seq harness comes with its own slice.
 """
 
 from __future__ import annotations
@@ -14,6 +19,11 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+
+# The recall@k floor quantized/approx serving must hold against exact
+# top-k (the serve path's acceptance bar; enforced by the tier-1 gate in
+# the tests and by the smoke run's gate line on the card).
+MIN_SCORE_MODE_RECALL = 0.95
 
 
 @dataclass
@@ -146,6 +156,142 @@ def holdout_auc(
         known,
     )
 
+
+
+@dataclass
+class RecallReport:
+    """Measured recall@k of the approximate serving score modes against
+    exact top-k on the standing corpus. green = both modes at/above the
+    floor."""
+
+    recall_quantized: float
+    recall_approx: float
+    k: int
+    n_queries: int
+    n_items: int
+    features: int
+    min_recall: float
+    approx_recall_target: float
+    eval_s: float
+
+    @property
+    def green(self) -> bool:
+        return (
+            self.recall_quantized >= self.min_recall
+            and self.recall_approx >= self.min_recall
+        )
+
+
+def mean_recall_at_k(got_idx: np.ndarray, exact_idx: np.ndarray, k: int) -> float:
+    """Mean per-query |top-k ∩ exact top-k| / k — the ONE recall
+    definition the gate and the smoke's measured-recall fields share, so
+    the numbers they report can never drift in meaning."""
+    return float(
+        np.mean([
+            len(set(map(int, g[:k])) & set(map(int, e[:k]))) / k
+            for g, e in zip(got_idx, exact_idx)
+        ])
+    )
+
+
+def recall_corpus(n_items: int, features: int, n_queries: int, seed: int):
+    """The gate's standing corpus, (item matrix [n_items, features] f32,
+    queries [n_queries, features] f32): low-rank structure plus noise,
+    like a trained Y — pure iid gaussians under-stress quantization
+    (scores concentrate), planted structure gives realistic near-ties.
+    The same draws as the JAX package's gate."""
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((max(8, features // 4), features))
+    y = (
+        rng.standard_normal((n_items, basis.shape[0])) @ basis
+        + 0.5 * rng.standard_normal((n_items, features))
+    ).astype(np.float32)
+    xs = rng.standard_normal((n_queries, features)).astype(np.float32)
+    return y, xs
+
+
+def rescored_topk(y: np.ndarray, xs: np.ndarray, cand_idx, k: int) -> np.ndarray:
+    """Exact f32 re-rank of each query's candidate rows on the host (the
+    serve path's ``_rerank_exact``), then top-k: what a client sees."""
+    cand_idx = np.asarray(cand_idx)
+    out = np.empty((xs.shape[0], k), dtype=np.int64)
+    for qi in range(xs.shape[0]):
+        rows = cand_idx[qi]
+        scores = y[rows] @ xs[qi]
+        order = np.argsort(-scores, kind="stable")[:k]
+        out[qi] = rows[order]
+    return out
+
+
+def evaluate_score_mode_recall(
+    n_items: int = 100_000,
+    features: int = 50,
+    k: int = 10,
+    n_queries: int = 256,
+    seed: int = 23,
+    approx_recall_target: float = 0.95,
+    min_recall: float = MIN_SCORE_MODE_RECALL,
+    overfetch: int | None = None,
+    device=None,
+) -> RecallReport:
+    """Measure recall@k of the quantized and approx serving modes against
+    the exact top-k on a standing synthetic corpus (deterministic seed —
+    the same corpus every run, so the number is a gate, not a dice roll).
+
+    Each mode is measured the way serving runs it (apps/als/serving.py):
+    the serving entry ``topk_dot_batch`` selects an over-fetched candidate
+    set on ``device`` (the card by default), the candidates are re-ranked
+    EXACTLY in f32 on the host, and the top-k of that re-rank is what a
+    client sees. The quantized row scores a ``QuantizedMatrix`` view: on
+    the card that is the int8 ``topk_dot_partial`` and ``topk_merge``; on
+    ``device="cpu"`` their plain versions. The approx row goes through
+    ``topk_dot_batch(..., recall=target)``, which computes exactly, as
+    ``jax.lax.approx_max_k`` does off the TPU. The exact reference is the
+    plain f32 product with TF32 off (``topk_dot_batch_xla``). The overfetch
+    defaults to k + 8 — the rescore set a no-exclusion request gets — so
+    the gate is never more forgiving than production's weakest case."""
+    import torch
+
+    from oryx_tpu_torch.device import resolve_device
+    from oryx_tpu_torch.ops.als import topk_dot_batch, topk_dot_batch_xla
+    from oryx_tpu_torch.ops.transfer import quantized_device_put
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    y, xs = recall_corpus(n_items, features, n_queries, seed)
+    if overfetch is None:
+        overfetch = min(n_items, k + 8)
+    xs_d = torch.from_numpy(xs).to(dev)
+    y_d = torch.from_numpy(y).to(dev)
+    _, exact_idx = topk_dot_batch_xla(xs_d, y_d, k=k)
+    exact_idx = exact_idx.cpu().numpy()
+
+    # quantized: int8 rows + per-row scales, the serving view's layout
+    _, q_idx = topk_dot_batch(
+        xs_d, quantized_device_put(y, device=dev), k=overfetch
+    )
+    recall_q = mean_recall_at_k(
+        rescored_topk(y, xs, q_idx.cpu().numpy(), k), exact_idx, k
+    )
+    # approx: the serving entry at the recall target, exact rescore of
+    # whatever it returns
+    _, a_idx = topk_dot_batch(
+        xs_d, y_d, k=min(overfetch, n_items), recall=approx_recall_target
+    )
+    recall_a = mean_recall_at_k(
+        rescored_topk(y, xs, a_idx.cpu().numpy(), k), exact_idx, k
+    )
+    return RecallReport(
+        recall_quantized=recall_q,
+        recall_approx=recall_a,
+        k=k,
+        n_queries=n_queries,
+        n_items=n_items,
+        features=features,
+        min_recall=min_recall,
+        approx_recall_target=approx_recall_target,
+        eval_s=time.perf_counter() - t0,
+    )
 
 
 @dataclass

@@ -92,10 +92,9 @@ class MLUpdate(BatchLayerUpdate):
         self.threshold = config.get("oryx.ml.eval.threshold", None)
         self.max_message_size = config.get_int("oryx.update-topic.message.max-size", 1 << 24)
         # bus-chunked MODEL-REF artifact bytes (cross-host resolution with
-        # no shared mount); off, the default here, is the reference's
-        # bare-path publish
+        # no shared mount); off restores the reference's bare-path publish
         self.artifact_transfer = config.get_bool(
-            "oryx.update-topic.artifact-transfer", False
+            "oryx.update-topic.artifact-transfer", True
         )
         reject_pod_config(config)
         # incremental generations: apps that maintain a persistent
@@ -342,9 +341,9 @@ class MLUpdate(BatchLayerUpdate):
     ) -> None:
         """Inline when small enough, else a path reference
         (MLUpdate.java:212-231) — preceded by the bus-chunked artifact
-        bytes (common/artifact.py publish_model_ref). The port's consumers
-        resolve a MODEL-REF by path and skip the chunks (the relay that
-        assembles them is ROADMAP queue 1 item 3)."""
+        bytes (common/artifact.py publish_model_ref), which every
+        consumer's artifact relay assembles when the path is not readable
+        on its host."""
         from oryx_tpu_torch.common.artifact import publish_model_ref
 
         serialized = model.to_string()

@@ -293,6 +293,11 @@ class ServingApp:
         from oryx_tpu_torch.common.perfattr import configure_perfattr
 
         configure_perfattr(config)
+        # the update-topic listener's artifact relay adopts the fleet's
+        # distribution mode (shared per-host cache vs per-process decode)
+        from oryx_tpu_torch.common.artifact import configure_artifact_relay
+
+        configure_artifact_relay(config)
         # the flight recorder (on-disk lifecycle ring + snapshot bundler,
         # common/flightrec.py) and the config-declared SLO burn-rate
         # gauges (common/slo.py) adopt the same config
@@ -305,9 +310,18 @@ class ServingApp:
             port=config.get_int("oryx.serving.api.port", 0),
         )
         ensure_serving_slos(config)
-        # Planes of the JAX package's constructor left out until ported:
-        # the artifact relay's distribution mode (ROADMAP queue 1 item 3),
-        # the live quality plane (item 4) and the model gate (item 5).
+        # live model-quality plane (common/qualitystats.py): shadow
+        # rescore sampling of served responses, drift gauges, and the
+        # quality SLO — adopt the same config and pre-register families
+        from oryx_tpu_torch.common.qualitystats import configure_qualitystats
+
+        configure_qualitystats(config)
+        # staged model adoption (common/modelgate.py): canary/hold/off
+        # per oryx.serving.model-gate.mode, configured before the update
+        # listener starts replaying the topic
+        from oryx_tpu_torch.common.modelgate import configure_model_gate
+
+        configure_model_gate(config)
 
         # healthz up->degraded edge detection (note_health_state): the
         # transition automatically triggers a flight snapshot off-thread

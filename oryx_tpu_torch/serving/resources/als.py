@@ -86,8 +86,9 @@ def register(app: ServingApp) -> None:
     # -- recommend family --------------------------------------------------
 
     # NOT nonblocking: the plan path can rebuild the device view (full Y
-    # copy + staged upload under _sync_lock after a model update) — far
-    # too heavy for inline event-loop dispatch. The worker-pool hop stays.
+    # copy + staged upload under _sync_lock after a model update) or run
+    # host LSH scoring — both far too heavy for inline event-loop
+    # dispatch. The worker-pool hop stays.
     @app.route("GET", "/recommend/{userID}")
     def recommend(a: ServingApp, req: Request):
         model = _model(a)
@@ -330,8 +331,12 @@ def register(app: ServingApp) -> None:
         st = model.state
         known = st.known_items_snapshot()
         mb = (st.x.nbytes() + st.y.nbytes()) / 1e6
-        # the JAX console's LSH sample rate and measured live recall wait
-        # for LSH and the quality plane (ROADMAP queue 1 item 4)
+        # MEASURED live recall beside the configured sample rate: the
+        # knob says what was asked for, the shadow-rescore window says
+        # what the traffic actually got (n/a before the first sample)
+        from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+        live = get_qualitystats().live_recall()
         return [
             ("users (X rows)", len(st.x)),
             ("items (Y rows)", len(st.y)),
@@ -340,6 +345,8 @@ def register(app: ServingApp) -> None:
             ("users with known items", len(known)),
             ("known-item pairs", sum(len(s) for s in known.values())),
             ("score mode", model.score_mode),
+            ("LSH sample rate", model.sample_rate),
+            ("live recall@10 (measured)", f"{live:.4f}" if live == live else "n/a"),
             ("host factor arenas", f"{mb:.1f} MB"),
         ]
 

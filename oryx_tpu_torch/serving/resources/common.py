@@ -9,10 +9,9 @@ reference never had: Prometheus /metrics, a /healthz liveness probe
 (distinct from /ready readiness), the /debug/traces span lens
 (common/tracing.py), the flight recorder's /debug/flight bundle
 (common/flightrec.py) and the /debug/profile capture window
-(common/perfstats.py, with a torch.profiler trace).
-
-Not registered until the model gate is ported (ROADMAP queue 1 item 5), so
-they answer 404: /control/model/approve and /control/model/rollback.
+(common/perfstats.py, with a torch.profiler trace), and the model gate's
+control plane, POST /control/model/approve and /control/model/rollback
+(common/modelgate.py).
 """
 
 from __future__ import annotations
@@ -106,10 +105,8 @@ def register(app: ServingApp) -> None:
         HEAD stays pure liveness (200 whenever the frontend dispatches),
         so probes choose their semantics by method.
 
-        Reports the fields whose sources are ported; the JAX package's
-        quality and model_gate fields wait for the quality plane and the
-        model gate (ROADMAP queue 1 items 4 and 5), and its shards field
-        for sharded views (item 11)."""
+        Carries the JAX package's fields but its shards field, which
+        comes with sharded views (ROADMAP queue 1 item 11)."""
         from oryx_tpu_torch.common.freshness import model_freshness
 
         degraded = a.degraded_reasons()
@@ -153,6 +150,15 @@ def register(app: ServingApp) -> None:
         except Exception:  # noqa: BLE001 - perf accounting is optional
             pass
         try:
+            from oryx_tpu_torch.common.qualitystats import get_qualitystats
+
+            # live quality scorecard: windowed shadow-rescore recall,
+            # sample/drop accounting, the served generation's stamped
+            # eval metrics, and drift vs its training profile
+            body["quality"] = get_qualitystats().healthz_section()
+        except Exception:  # noqa: BLE001 - a probe never 500s on quality
+            pass
+        try:
             from oryx_tpu_torch.common import slo
 
             # SLO source reads that raised in THIS process (slo -> last
@@ -165,6 +171,17 @@ def register(app: ServingApp) -> None:
             if burn:
                 body["slo_burn"] = burn
         except Exception:  # noqa: BLE001 - a probe never 500s on slo state
+            pass
+        try:
+            from oryx_tpu_torch.common.modelgate import get_model_gate
+
+            # staged-adoption state (mode, watermark, held generation,
+            # adoption history): whether a canary adopted the new
+            # generation and a hold replica still pins the incumbent
+            gate = get_model_gate()
+            if gate.active:
+                body["model_gate"] = gate.healthz_section()
+        except Exception:  # noqa: BLE001 - a probe never 500s on gate state
             pass
         try:
             from oryx_tpu_torch.common.perfattr import get_perfattr
@@ -182,6 +199,50 @@ def register(app: ServingApp) -> None:
     @app.route("HEAD", "/healthz", nonblocking=True)
     def healthz_head(a: ServingApp, req: Request):
         return 200, None
+
+    # model-gate control plane: an operator (or a fleet controller) drives
+    # these. Deliberately exempt from the app's read-only mode: they
+    # mutate which already-published model serves, never application
+    # data. NOT nonblocking: an adoption loads the model and builds its
+    # device view in the handler (about a second at 1M x 50), so the
+    # async frontend runs them on its worker pool, off the event loop.
+    @app.route("POST", "/control/model/approve")
+    def model_approve(a: ServingApp, req: Request):
+        """Raise the gate's approved watermark to the given generation; a
+        held generation at/under it is adopted before the response
+        returns. 409 while the gate is off."""
+        from oryx_tpu_torch.common.modelgate import ModelGateError, get_model_gate
+
+        try:
+            doc = json.loads(req.body_text() or "{}")
+            generation = int(doc["generation"])
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+            raise OryxServingException(
+                400, 'body must be JSON {"generation": <int>}'
+            )
+        try:
+            return 200, get_model_gate().approve(generation)
+        except ModelGateError as e:
+            raise OryxServingException(409, str(e))
+
+    @app.route("POST", "/control/model/rollback")
+    def model_rollback(a: ServingApp, req: Request):
+        """Re-apply the previously adopted generation (pointer swap from
+        the pinned relay cache) and veto the current one. 409 while the
+        gate is off or holds no previous generation."""
+        from oryx_tpu_torch.common.modelgate import ModelGateError, get_model_gate
+
+        try:
+            doc = json.loads(req.body_text() or "{}")
+        except json.JSONDecodeError:
+            doc = {}
+        reason = doc.get("reason") if isinstance(doc, dict) else None
+        try:
+            return 200, get_model_gate().rollback(
+                reason=str(reason) if reason else None
+            )
+        except ModelGateError as e:
+            raise OryxServingException(409, str(e))
 
     @app.route("POST", "/ingest")
     def ingest(a: ServingApp, req: Request):

@@ -759,3 +759,75 @@ def test_route_binned_device_on_the_card_matches_the_host(cuda_device):
         torch.from_numpy(data.binned).to(cuda_device), f.max_depth)
     np.testing.assert_array_equal(
         leaves.cpu().numpy(), route_binned(f.feature, f.split_left, data.binned, f.max_depth))
+
+
+def _tied_queries(n_items, n_queries, k, features=50, seed=23) -> int:
+    """Queries of the recall gate's corpus whose exact k-th and (k+1)-th
+    scores lie within f32 accumulation error of each other: where two
+    exact references summed in another order may rank differently."""
+    from oryx_tpu_torch.ml.quality import recall_corpus
+
+    y, xs = recall_corpus(n_items, features, n_queries, seed)
+    s = np.sort(xs.astype(np.float64) @ y.T.astype(np.float64), axis=1)
+    scale = np.abs(xs).max(axis=1) * np.abs(y).max() * features
+    return int(np.sum(s[:, -k] - s[:, -k - 1]
+                      <= T.f32_tolerance(features) * scale))
+
+
+def test_recall_gate_on_the_card(cuda_device):
+    """The score-mode recall gate on the card: the quantized row runs the
+    int8 kernels (launch counts), both rows hold the 0.95 floor, and both
+    equal the plain run on the CPU on the same corpus up to one
+    1/(k * n_queries) for each query with an f32 tie at its k-th place."""
+    from oryx_tpu_torch.ml.quality import (
+        MIN_SCORE_MODE_RECALL,
+        evaluate_score_mode_recall,
+    )
+
+    n_items, n_queries, k = 100_000, 256, 10
+    T.reset_launches()
+    card = evaluate_score_mode_recall(n_items=n_items, n_queries=n_queries)
+    torch.cuda.synchronize()
+    assert T.PARTIAL_LAUNCHES_BY_TYPE["int8"] >= 1
+    assert T.LAUNCHES["topk_merge"] >= 1
+    cpu = evaluate_score_mode_recall(n_items=n_items, n_queries=n_queries,
+                                     device="cpu")
+    assert card.recall_quantized >= MIN_SCORE_MODE_RECALL
+    assert card.recall_approx >= MIN_SCORE_MODE_RECALL
+    allowance = _tied_queries(n_items, n_queries, k) / (k * n_queries)
+    assert abs(card.recall_quantized - cpu.recall_quantized) <= allowance
+    assert abs(card.recall_approx - cpu.recall_approx) <= allowance
+
+
+def test_shadow_sample_of_a_quantized_card_answer(cuda_device, monkeypatch):
+    """A quantized answer from the card, offered to the live quality
+    sampler, is rescored exactly on the host: one sample, recall@10 of
+    the re-ranked answer against the exact f32 top-10."""
+    import oryx_tpu_torch.common.qualitystats as qmod
+    from oryx_tpu_torch.apps.als.serving import ALSServingModel
+    from oryx_tpu_torch.apps.als.state import state_from_arrays
+    from oryx_tpu_torch.common.config import load_config
+
+    qs = qmod.QualityStats()
+    qs.configure(load_config(overlay={
+        "oryx.monitoring.quality.sample-rate": 1.0}))
+    monkeypatch.setattr(qmod, "_default", qs)
+    rng = np.random.default_rng(5)
+    y = rng.standard_normal((20000, 50)).astype(np.float32)
+    state = state_from_arrays(50, True, [], np.zeros((0, 50), np.float32),
+                              [f"i{j}" for j in range(20000)], y)
+    model = ALSServingModel(state, score_mode="quantized")
+    try:
+        xu = rng.standard_normal(50).astype(np.float32)
+        T.reset_launches()
+        pairs = model.top_n(xu, 10)
+        assert T.PARTIAL_LAUNCHES_BY_TYPE["int8"] == 1
+        assert qs.flush(30)
+        assert qs.samples_processed() == 1
+        want = {f"i{j}" for j in np.argsort(-(y @ xu))[:10]}
+        recall = len(want & {i for i, _ in pairs}) / 10
+        assert qs.live_recall("quantized") == pytest.approx(recall)
+        assert recall >= 0.9
+    finally:
+        model.close()
+        qs.close()

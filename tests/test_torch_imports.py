@@ -233,3 +233,74 @@ def test_batch_and_speed_layers_and_cli_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="item 11"):
         cli.main(["batch", "--app", "als", "--set",
                   "oryx.compute.distributed.num-processes=2"])
+
+
+# the serving planes' modules: the artifact relay, LSH, the rescorer SPI,
+# the live quality plane, the model gate and the recall gate's harness
+SERVING_PLANES_MODULES = (
+    "oryx_tpu_torch.common.artifact", "oryx_tpu_torch.common.modelgate",
+    "oryx_tpu_torch.common.qualitystats", "oryx_tpu_torch.apps.als.lsh",
+    "oryx_tpu_torch.apps.als.rescorer", "oryx_tpu_torch.ml.quality",
+    "oryx_tpu_torch.common.freshness", "oryx_tpu_torch.api",
+)
+
+
+def test_serving_planes_modules_import_with_jax_blocked():
+    """Each module of the serving planes, imported alone in a fresh process
+    with jax blocked, loads no module of the JAX package; the recall
+    gate, the relay and the gate's entry points are there."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {SERVING_PLANES_MODULES!r}:
+            importlib.import_module(name)
+        from oryx_tpu_torch.ml.quality import (
+            MIN_SCORE_MODE_RECALL, RecallReport, evaluate_score_mode_recall,
+            mean_recall_at_k)
+        from oryx_tpu_torch.common.artifact import (
+            ArtifactRelay, configure_artifact_relay, reset_artifact_relay)
+        from oryx_tpu_torch.common.modelgate import configure_model_gate
+        from oryx_tpu_torch.common.qualitystats import configure_qualitystats
+        from oryx_tpu_torch.apps.als.rescorer import (
+            MultiRescorer, Rescorer, RescorerProvider)
+        assert MIN_SCORE_MODE_RECALL == 0.95
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_serving_never_reaches_the_samplers_host_scorer():
+    """The quality sampler's exact host scorer is a reference measurement
+    off the hot path: it is private to common/qualitystats.py, and no
+    module under serving/ names it (or the sampler's scoring entry)."""
+    from oryx_tpu_torch.common import qualitystats
+
+    assert not hasattr(qualitystats, "host_topk")
+    assert callable(qualitystats._exact_topk)
+    for path in (ROOT / "oryx_tpu_torch" / "serving").rglob("*.py"):
+        text = path.read_text()
+        for name in ("_exact_topk", "score_sample", "host_topk"):
+            assert name not in text, (path, name)
+    for path in (ROOT / "oryx_tpu_torch").rglob("*.py"):
+        if path.name != "qualitystats.py":
+            assert "_exact_topk" not in path.read_text(), path
+
+
+def test_recall_gate_needs_the_card_unless_told(monkeypatch):
+    """The recall gate measures on the card by default and does not move
+    to the CPU on its own."""
+    from oryx_tpu_torch.ml.quality import evaluate_score_mode_recall
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_score_mode_recall(n_items=100, n_queries=4)

@@ -386,3 +386,185 @@ def _h2_get(port: int, path: str) -> tuple[int, bytes]:
                     break
         s.sendall(_frame(0x7, 0, 0, struct.pack(">II", 0, 0)))  # GOAWAY
         return status, body
+
+
+# -- the serving planes side by side ------------------------------------------
+# LSH candidate sampling (oryx.als.sample-rate = 0.3, the published
+# setting), the model gate in hold mode, and the artifact relay: each
+# generation goes out as MODEL-CHUNKs + MODEL-REF + TRACE (the JAX
+# package's publish_model_ref at a 4 KiB max-size), its directory removed
+# before either layer replays it. Both packages draw their LSH hyperplanes
+# under the same test seed, so their answers are identical; the gate's
+# healthz section is equal at every step. Tolerance: the same as above.
+
+PLANES_USERS = ("u1", "u2", "u3", "u17", "u40")
+
+
+def _generation_factors(gen: int, features: int):
+    rng = np.random.default_rng(100 + gen)
+    return (rng.standard_normal((N_USERS, features), dtype=np.float32),
+            rng.standard_normal((N_ITEMS, features), dtype=np.float32))
+
+
+def _generation_messages(tmp_path, gen: int, features: int) -> list:
+    """One generation as the batch layer publishes it, from a model
+    directory that is deleted afterwards (no shared mount)."""
+    from oryx_tpu.common.artifact import publish_model_ref as jax_publish_ref
+    from oryx_tpu.common.freshness import publish_stamp
+
+    x_ids = [f"u{j}" for j in range(N_USERS)]
+    y_ids = [f"i{j}" for j in range(N_ITEMS)]
+    x, y = _generation_factors(gen, features)
+    art = ModelArtifact("als", tensors={"X": x, "Y": y})
+    art.set_extension("features", str(features))
+    art.set_extension("implicit", "true")
+    art.set_extension("XIDs", x_ids)
+    art.set_extension("YIDs", y_ids)
+    path = tmp_path / "batch-host" / str(gen)
+    art.write(path)
+
+    class _Capture(list):
+        def send(self, key, message):
+            self.append((key, message))
+
+    sent = _Capture()
+    jax_publish_ref(sent, art.to_string(), str(path), max_message_size=4096)
+    sent.send("TRACE", publish_stamp(generation=gen))
+    return sent
+
+
+@pytest.fixture(scope="module")
+def planes(tmp_path_factory):
+    """Both packages' layers with LSH, the hold gate and the relay; the
+    recorded answers and healthz sections at each step of hold ->
+    approve -> rollback."""
+    import shutil
+
+    import oryx_tpu.common.artifact as jartifact
+    import oryx_tpu.common.modelgate as jgate
+    import oryx_tpu_torch.common.artifact as partifact
+    import oryx_tpu_torch.common.modelgate as pgate
+    from oryx_tpu.common.rng import RandomManager as JaxRandomManager
+    from oryx_tpu_torch.common.rng import RandomManager
+
+    tmp = tmp_path_factory.mktemp("planes")
+    gens = {1: _generation_messages(tmp, 1, FEATURES),
+            2: _generation_messages(tmp, 2, FEATURES + 2)}
+    shutil.rmtree(tmp / "batch-host")  # the relay alone has the bytes
+    assert sum(k == "MODEL-CHUNK" for k, _ in gens[1]) > 1
+    with pytest.MonkeyPatch.context() as mp:
+        jrelay = jartifact.ArtifactRelay()
+        jrelay._cache_root = tmp / "jax-cache"
+        jrelay._cache_root.mkdir()
+        mp.setattr(jartifact, "_RELAY", jrelay)
+        mp.setattr(partifact, "_RELAY", partifact.ArtifactRelay(tmp / "port-cache"))
+        mp.setattr(jgate, "_instance", None)
+        mp.setattr(pgate, "_instance", None)
+        RandomManager.use_test_seed(2024)
+        JaxRandomManager.use_test_seed(2024)
+        extra = {"oryx.als.sample-rate": 0.3,
+                 "oryx.als.candidate-partitions": 4,
+                 "oryx.serving.model-gate.mode": "hold",
+                 "oryx.update-topic.artifact-transfer": True}
+        jbus, pbus = "mem://jax-planes", "mem://port-planes"
+        jbroker, pbroker = jax_get_broker(jbus), get_broker(pbus)
+        _create_topics(jbroker)
+        _create_topics(pbroker)
+        jcfg = jax_load_config(overlay={**_overlay(
+            jax_app_overlay("als"), jbus, "async", tmp / "jflight"), **extra})
+        pcfg = load_config(overlay={**_overlay(
+            app_overlay("als"), pbus, "async", tmp / "pflight"), **extra})
+        jlayer = JaxServingLayer(jcfg)
+        player = ServingLayer(
+            pcfg, model_manager=ALSServingModelManager(pcfg, device="cpu"))
+        layers = {"jax": (jlayer, jbroker), "port": (player, pbroker)}
+        steps = {}
+
+        def record(step):
+            steps[step] = {}
+            for pkg, (sl, _b) in layers.items():
+                hz = json.loads(_request(sl.port, "GET", "/healthz",
+                                         headers=JSON)[2])
+                answers = [
+                    _request(sl.port, "GET", f"/recommend/{u}?howMany=8",
+                             headers=JSON)
+                    for u in PLANES_USERS]
+                similar = _request(sl.port, "GET", "/similarity/i7?howMany=5",
+                                   headers=JSON)
+                steps[step][pkg] = (hz, answers, similar)
+
+        def post(path, body):
+            return {pkg: _request(sl.port, "POST", path, body, JSON)
+                    for pkg, (sl, _b) in layers.items()}
+
+        jlayer.start()
+        player.start()
+        try:
+            for _pkg, (sl, broker) in layers.items():
+                for key, message in gens[1]:
+                    broker.send("OryxUpdate", key, message)
+            for _pkg, (sl, _b) in layers.items():
+                _wait(sl.port, "/ready", lambda s, _body: s == 200)
+            steps["arm"] = post("/control/model/approve", b'{"generation": 1}')
+            for _pkg, (sl, broker) in layers.items():
+                for key, message in gens[2]:
+                    broker.send("OryxUpdate", key, message)
+            for _pkg, (sl, _b) in layers.items():
+                _wait(sl.port, "/healthz", lambda s, body: json.loads(body)
+                      .get("model_gate", {}).get("pending_generation") == 2)
+            record("held")
+            steps["approve"] = post("/control/model/approve",
+                                    b'{"generation": 2}')
+            record("approved")
+            steps["rollback"] = post("/control/model/rollback",
+                                     b'{"reason": "test"}')
+            record("rolled-back")
+            yield steps
+        finally:
+            player.close()
+            jlayer.close()
+            RandomManager.clear_test_seed()
+            JaxRandomManager.clear_test_seed()
+
+
+@pytest.mark.parametrize("step", ["held", "approved", "rolled-back"])
+def test_planes_answer_alike(planes, step):
+    (jhz, janswers, jsim), (phz, panswers, psim) = (
+        planes[step]["jax"], planes[step]["port"])
+    assert phz["model_gate"] == jhz["model_gate"]
+    assert phz["model_generation"] == jhz["model_generation"]
+    for j, p in zip(janswers + [jsim], panswers + [psim]):
+        assert j[0] == p[0] == 200, (j, p)
+        # LSH on the same partitions: the same candidates, the same
+        # host f32 scores
+        assert json.loads(p[2]) == json.loads(j[2])
+    assert set(phz["quality"]) >= {"live_recall_at_10", "samples",
+                                   "dropped", "sample_rate"}
+
+
+def test_planes_gate_steps(planes):
+    for action in ("arm", "approve", "rollback"):
+        (js, _jt, jb), (ps, _pt, pb) = (planes[action]["jax"],
+                                        planes[action]["port"])
+        assert js == ps == 200
+        assert json.loads(pb) == json.loads(jb)
+    held, approved, back = (planes[s]["port"][0] for s in (
+        "held", "approved", "rolled-back"))
+    assert held["model_gate"]["pending_generation"] == 2
+    assert held["model_generation"] == 1
+    assert approved["model_gate"]["generations"] == [1, 2]
+    assert approved["model_generation"] == 2
+    assert back["model_gate"]["vetoed"] == [2]
+    assert back["model_generation"] == 1
+    # each step served its own generation: every served score is that
+    # generation's dot product (a rollback builds a new model, whose LSH
+    # draws new hyperplanes, so its candidates may differ from the held
+    # step's)
+    for step, gen, features in (("held", 1, FEATURES),
+                                ("approved", 2, FEATURES + 2),
+                                ("rolled-back", 1, FEATURES)):
+        x, y = _generation_factors(gen, features)
+        for u, (_s, _t, body) in zip(PLANES_USERS, planes[step]["port"][1]):
+            for ident, score in json.loads(body):
+                exact = float(x[int(u[1:])] @ y[int(ident[1:])])
+                assert _close(score, exact, VALUE_RTOL), (step, u, ident)

@@ -888,7 +888,7 @@ def test_faults_watchdog_and_freshness_record_flight_events(tmp_path,
     assert wedges == [("flight-test", "wedged"), ("flight-test", "cleared")]
 
     fresh = ModelFreshness()
-    fresh.note_loaded()
+    fresh.note_loaded("MODEL")
     fresh.note_stamp(publish_stamp(generation=42))
     gen = events("generation")[-1]
     assert gen["generation"] == 42 and gen["lag_s"] >= 0

@@ -364,9 +364,9 @@ from oryx_tpu_torch.common.config import load_config  # noqa: E402
 from oryx_tpu_torch.serving.server import ServingLayer  # noqa: E402
 
 N_ITEMS, N_USERS, FEATURES = 500, 40, 8
-# /healthz keys whose planes the port does not have yet: the quality plane
-# (ROADMAP queue 1 item 4), the model gate (item 5), sharded views (11)
-UNPORTED_HEALTHZ_KEYS = {"quality", "model_gate", "shards"}
+# /healthz keys whose planes the port does not have yet: sharded views
+# (ROADMAP queue 1 item 11)
+UNPORTED_HEALTHZ_KEYS = {"shards"}
 
 
 @pytest.fixture(scope="module")
