@@ -136,7 +136,31 @@ Phases, each printing JSON lines:
    serving layer to /ready, 256 GET /predict and 256 GET
    /classificationDistribution against the host routing of the published
    forest (labels equal, probabilities within 1e-6), and 1,000 labeled
-   speed events whose UP counts serving must add to its leaves.
+   speed events whose UP counts serving must add to its leaves;
+9. seq (run after phase 6 and before 7: it serves through the shared
+   batcher, which closes after it; the GRU trainer has no hand kernel, its
+   serving reaches the top-k kernels): build_and_evaluate_seq at its
+   defaults (2,000 items, 3,000 sessions, dim 32, window 8, 12 epochs) must
+   reach hit-rate@10 >= 0.65 (the JAX package's calibrated floor), and at
+   bench.py's accelerator shape (20,000 items, 20,000 sessions of 10, 10
+   epochs) > 0.5; one more epoch there traced by torch.profiler (the card's
+   busy share, device time by op); from the trained weights, 2 epochs of
+   train_gru over the first 16,384 examples on the card and on the CPU
+   (E and GRU weights within 1e-3). Then the seq app on a file:// bus: a
+   SeqUpdate generation over bench.py's ingest shape with its sessions cut
+   to 20,000 (x 12 events over 50,000 items = 240,000 events;
+   oryx.seq.hyperparams.epochs cut to 5), the serving layer to /ready (at
+   a load fraction of 1.0), 256 GET /recommend-next against
+   a float64 GRU and full-catalog ranking of the published weights
+   (recall@10 >= 0.99, the exact mode's floor: its candidates come from a
+   bf16 scan, so a served item may differ from float64's only within that
+   scan's rounding, 2^-7 of sum |h_i e_i|; values within 1e-4), a burst of
+   2,048 over HTTP (qps, p50/p99, all 200), the encode's
+   own time per request, and 1,000 speed events folded on the card, one of
+   them a never-seen item: serving must apply every UP row and recommend
+   the new item. The kernel launches of the app's serving leg count
+   toward the kernels line, where each kernel also carries its readings
+   in the seq case of phase 2 (512 x 50,000 x 32, k = 32).
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. With --ab-parent DIR the script runs the
@@ -195,8 +219,12 @@ CASES = [
     # every item row identical: every score ties, and the answer is the
     # lowest 128 indices
     ("all-ties", 7, 20_000, 16, 128, 20_000),
+    # the seq app's /recommend-next: a batcher group over its catalog at the
+    # GRU's width (F = 32, 50,000 items)
+    ("seq", 512, 50_000, 32, 32, 1),
 ]
 BIG_ITEMS = 100_000  # time the plain and library forms only at or above
+# (and in the seq case)
 
 
 def emit(obj) -> None:
@@ -322,13 +350,13 @@ def tf32_control(torch, T, xk, y, k, true_score, f) -> dict:
     return {"max_err_vs_f64": err, "tol": tol, "rejected": err > tol}
 
 
-def kernel_phase(torch, T) -> tuple[list, dict]:
+def kernel_phase(torch, T) -> tuple[list, dict, dict, dict]:
     from oryx_tpu_torch.ops.timing import wall_ms
     from oryx_tpu_torch.ops.transfer import to_pitched
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    lines, at_serving, at_single = [], {}, {}
+    lines, at_serving, at_single, at_seq = [], {}, {}, {}
     for name, b, n, f, k, dup in CASES:
         base = torch.randn((-(-n // dup), f), generator=gen, device=dev)
         y32 = base.repeat_interleave(dup, dim=0)[:n].contiguous() if dup > 1 else base
@@ -434,7 +462,7 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
             # the merge needs only each list's first k entries
             line["merge_bound_ms"], line["merge_bound_by"] = bound(
                 8 * n_splits * b * k + 8 * b * k, 0, type_name)
-            if n >= BIG_ITEMS:
+            if n >= BIG_ITEMS or name == "seq":
                 reps = 3 if b * n > 1e9 else 5
                 line["plain_ms"] = time_ms(torch, lambda: T.topk_dot_batch_reference(
                     xs_in, y, k=k, scales=scales), f"{at}/plain", reps=reps,
@@ -453,7 +481,7 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
                 line["merge_library_wall_ms"] = wall_ms(
                     torch, lambda: torch.topk(flat, k, dim=1))
                 del flat
-            if name == "serving":
+            if name in ("serving", "seq"):
                 line["partial_plain_ms"] = time_ms(
                     torch, lambda: T.topk_dot_partial_reference(
                         xk, y, kb=kb, n_splits=n_splits, split_len=split_len,
@@ -462,7 +490,7 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
                 line["merge_plain_ms"] = time_ms(
                     torch, lambda: T.topk_merge_reference(pv, pi, k=k),
                     f"{at}/merge_plain", reps=20, warmup=2)
-                at_serving[type_name] = line
+                (at_serving if name == "serving" else at_seq)[type_name] = line
             # device readings of this line that may hold host time
             line["not_queued"] = [w.rsplit("/", 1)[1]
                                   for w in NOT_QUEUED[nq0:]]
@@ -473,7 +501,7 @@ def kernel_phase(torch, T) -> tuple[list, dict]:
             del y, pv, pi, rv, ri, yf, xkf
         del base, y32, xs32
         torch.cuda.empty_cache()
-    return lines, at_serving, at_single
+    return lines, at_serving, at_single, at_seq
 
 
 def library_call(torch, xk, y, k, scales):
@@ -2222,6 +2250,7 @@ def kmeans_phase(torch, np, root: Path, device="cuda", shape=KMEANS_SHAPE,
         app["generation_s"] = time.perf_counter() - t
         t_pub = time.monotonic()
         batch.close()
+        emit({"phase": "seq-generation", **app})
         art = ModelArtifact.read(root / "model" / str(ts))
         centers = np.asarray(art.tensors["centers"], np.float32)
         check(centers.shape == (shape["k"], dims), f"published {centers.shape}")
@@ -2397,6 +2426,7 @@ def rdf_phase(torch, np, root: Path, device="cuda", shape=RDF_SHAPE,
         app["generation_s"] = time.perf_counter() - t
         t_pub = time.monotonic()
         batch.close()
+        emit({"phase": "seq-generation", **app})
         art = ModelArtifact.read(root / "model" / str(ts))
         ref = artifact_to_model(art, InputSchema(cfg), device="cpu")
 
@@ -2474,6 +2504,337 @@ def rdf_phase(torch, np, root: Path, device="cuda", shape=RDF_SHAPE,
         check(applied is not None, "serving never applied the speed UPs")
         app["speed"] = {"events": speed_events, "up_rows": len(ups),
                         "counts_added": added}
+    finally:
+        for layer in layers:
+            layer.close()
+    out["app"] = app
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: seq (the GRU trainer's quality gate and bench shape, then the app)
+# ---------------------------------------------------------------------------
+
+SEQ_HIT_RATE_FLOOR = 0.65  # tests/test_quality_gate.py:164, at the harness defaults
+SEQ_BENCH_SHAPE = {"n_items": 20_000, "n_sessions": 20_000, "session_len": 10,
+                   "epochs": 10}  # bench.py's accelerator shape
+SEQ_BENCH_FLOOR = 0.5  # not calibrated at this shape; chance is 0.0005
+SEQ_REPLACES = "oryx_tpu/ops/seq.py:105"  # _adagrad_step: torch ops, no Pallas kernel
+SEQ_CPU_EXAMPLES = 16_384  # the card-against-CPU training check's slice
+SEQ_TRAIN_ATOL = 1e-3  # E and GRU weights, card against CPU, after 2 epochs
+# the app leg: bench.py's ingest shape (sessions x events over items) with
+# its sessions cut from 40,000 to 20,000 (240,000 events; the 480,000 took
+# 48.0 s of generation on an NVIDIA H100 80GB HBM3 at 700.00 W) and
+# oryx.seq.hyperparams.epochs cut from 30 to 5, to fit the time limit
+SEQ_APP = {"n_items": 50_000, "n_sessions": 20_000, "session_len": 12, "epochs": 5}
+SEQ_VALUE_ATOL = 1e-4  # served scores against float64
+SEQ_BF16_REL = 2.0 ** -7  # the bf16 scan's rounding: 2^-9 per operand, two
+# operands, two scores compared
+SEQ_BURST = 2048
+
+
+def gru64(np, params: dict, vecs, mask):
+    """The GRU of ops/seq.py in float64 numpy: (z, r, n) gates, the bias on
+    the x side, masked steps carry h."""
+    wx, wh, b = (np.asarray(params[k], np.float64) for k in ("Wx", "Wh", "b"))
+    d = wh.shape[0]
+    h = np.zeros((vecs.shape[0], d))
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x))  # noqa: E731
+    for t in range(vecs.shape[1]):
+        gx = vecs[:, t] @ wx + b
+        gh = h @ wh
+        z = sig(gx[:, :d] + gh[:, :d])
+        r = sig(gx[:, d:2 * d] + gh[:, d:2 * d])
+        n = np.tanh(gx[:, 2 * d:] + r * gh[:, 2 * d:])
+        h = np.where(mask[:, t, None] > 0, (1.0 - z) * n + z * h, h)
+    return h
+
+
+def seq_next_check(np, e, params, row_of, contexts, served, how_many, window) -> dict:
+    """Hold served /recommend-next pages against a float64 GRU + ranking of
+    the whole catalog of the published weights. Exact mode selects its
+    candidates in a bf16 scan and re-ranks them in f32, so a served item
+    may differ from the float64 ranking's only where the two items' scores
+    lie within the scan's rounding (SEQ_BF16_REL of sum |h_i e_i|, both
+    operands rounded); recall@10 holds the exact mode's floor; every
+    served value is within SEQ_VALUE_ATOL of its float64 score."""
+    e64 = np.asarray(e, np.float64)
+    d = e64.shape[1]
+    vecs = np.zeros((len(contexts), window, d))
+    mask = np.zeros((len(contexts), window))
+    for j, ctx in enumerate(contexts):
+        rows = [row_of[i] for i in ctx[-window:]]
+        vecs[j, window - len(rows):] = e64[rows]
+        mask[j, window - len(rows):] = 1.0
+    h = gru64(np, params, vecs, mask)
+    val_err, flips, hits, worst = 0.0, 0, 0, 0.0
+    for j, (ctx, pairs) in enumerate(zip(contexts, served)):
+        s = e64 @ h[j]
+        s[[row_of[i] for i in ctx]] = -np.inf  # the session's own items
+        ref = np.argsort(-s, kind="stable")[:how_many]
+        check(len(pairs) == how_many, f"/recommend-next served {len(pairs)}")
+        got_rows = [row_of[ident] for ident, _v in pairs]
+        hits += len(set(got_rows) & set(ref.tolist()))
+        for slot, ((ident, value), row) in enumerate(zip(pairs, got_rows)):
+            val_err = max(val_err, abs(value - s[row]))
+            if row != ref[slot]:
+                flips += 1
+                scale = max(np.abs(e64[r] * h[j]).sum() for r in (row, ref[slot]))
+                worst = max(worst, abs(s[row] - s[ref[slot]]) / scale)
+                check(abs(s[row] - s[ref[slot]]) <= SEQ_BF16_REL * scale,
+                      f"/recommend-next slot {slot}: {ident} scores {s[row]}, "
+                      f"float64 ranks row {ref[slot]} at {s[ref[slot]]}")
+    recall = hits / (how_many * len(served))
+    check(val_err <= SEQ_VALUE_ATOL, f"served scores {val_err} from float64")
+    check(recall >= MIN_RECALL["exact"], f"/recommend-next recall@10 {recall}")
+    return {"requests": len(served), "recall_at_10": recall,
+            "max_abs_err_vs_f64": val_err, "slots_off_f64_order": flips,
+            "worst_gap_over_sum_abs": worst}
+
+
+def seq_lines(sessions, t0_ms: int) -> list:
+    """bench.py's session event lines: user, session, item, ts."""
+    return [f"u{j % 997},s{j},i{it},{t0_ms + j * 100 + t}"
+            for j, s in enumerate(sessions) for t, it in enumerate(s)]
+
+
+def seq_phase(torch, np, T, root: Path, device="cuda", gate=None,
+              bench=SEQ_BENCH_SHAPE, app_shape=SEQ_APP, requests=APP_REQUESTS,
+              burst_requests=SEQ_BURST, speed_events=APP_SPEED_EVENTS,
+              cpu_examples=SEQ_CPU_EXAMPLES) -> dict:
+    """Phase 9: build_and_evaluate_seq at its defaults (the calibrated gate)
+    and at the bench's shape on the card, one traced epoch, the card's
+    train_gru against the CPU's from one warm start; then the seq app on a
+    file:// bus: a generation, /recommend-next over HTTP against float64, a
+    burst, speed UPs with a never-seen item."""
+    from oryx_tpu_torch.apps.seq.batch import SeqUpdate
+    from oryx_tpu_torch.apps.seq.common import windowed_examples
+    from oryx_tpu_torch.apps.seq.serving import SeqServingModelManager
+    from oryx_tpu_torch.apps.seq.speed import SeqSpeedModelManager
+    from oryx_tpu_torch.apps.updates import parse_update_message
+    from oryx_tpu_torch.bus import TopicProducer, get_broker
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.layers import BatchLayer, SpeedLayer
+    from oryx_tpu_torch.ml.quality import build_and_evaluate_seq, synthesize_sessions
+    from oryx_tpu_torch.ops.seq import train_gru
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    cuda = device == "cuda"
+    out = {"phase": "seq", "replaces": SEQ_REPLACES, "dim": 32, "window": 8}
+
+    # a. the calibrated gate at the harness's defaults
+    rep = build_and_evaluate_seq(device=device, **(gate or {}))
+    out["gate"] = {"hit_rate": rep.hit_rate, "floor": SEQ_HIT_RATE_FLOOR,
+                   "chance": rep.chance, "build_s": rep.build_s,
+                   "examples": rep.examples, "epochs": rep.epochs_run,
+                   "items": rep.n_items, "sessions": rep.n_sessions}
+    check(rep.hit_rate >= SEQ_HIT_RATE_FLOOR, f"seq gate hit-rate {rep.hit_rate}")
+
+    # b. the bench's shape, one traced epoch, the card against the CPU
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rep = build_and_evaluate_seq(device=device, **bench)
+    out["bench"] = {**bench, "hit_rate": rep.hit_rate, "chance": rep.chance,
+                    "floor": SEQ_BENCH_FLOOR, "build_s": rep.build_s,
+                    "window_s": rep.window_s, "examples": rep.examples,
+                    "steps": bench["epochs"] * -(-rep.examples // 1024),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    check(rep.hit_rate > SEQ_BENCH_FLOOR, f"seq bench hit-rate {rep.hit_rate}")
+    model = rep.model
+    sessions = synthesize_sessions(bench["n_items"], bench["n_sessions"],
+                                   bench["session_len"])
+    item_to_row = {str(i): i for i in range(bench["n_items"])}
+    ctx, mask, tgt = windowed_examples(
+        {f"s{j}": [str(i) for i in s] for j, s in enumerate(sessions)},
+        item_to_row, 8)
+    kw = dict(n_items=bench["n_items"], dim=32, item_ids=model.item_ids,
+              resume_e=model.e, resume_params=model.params)
+    if cuda:
+        out["bench"]["profile"] = build_profile(torch, lambda: train_gru(
+            ctx, mask, tgt, epochs=1, device=device,
+            seed_key=torch.Generator().manual_seed(SEED), **kw))
+    got = {}
+    t = time.perf_counter()
+    for dev in ({device, "cpu"}):
+        got[dev], _ = train_gru(
+            ctx[:cpu_examples], mask[:cpu_examples], tgt[:cpu_examples],
+            epochs=2, device=dev, seed_key=torch.Generator().manual_seed(SEED), **kw)
+    err = max([float(np.abs(got[device].e - got["cpu"].e).max())]
+              + [float(np.abs(got[device].params[k] - got["cpu"].params[k]).max())
+                 for k in model.params])
+    moved = float(np.abs(got["cpu"].e - model.e).max())
+    out["bench"]["card_vs_cpu"] = {"examples": min(cpu_examples, len(tgt)),
+                                   "seconds": time.perf_counter() - t,
+                                   "epochs": 2, "max_abs_err": err,
+                                   "atol": SEQ_TRAIN_ATOL, "max_moved": moved}
+    check(err <= SEQ_TRAIN_ATOL and moved > SEQ_TRAIN_ATOL,
+          f"train_gru on the card {err} from the CPU's (weights moved {moved})")
+    del rep, model, got, ctx, mask, tgt, sessions
+    if cuda:
+        torch.cuda.empty_cache()
+    emit({"phase": "seq-builds", "gate": out["gate"], "bench": out["bench"]})
+
+    # c. the app on a file:// bus
+    cfg, bus = app_config(root, "seq", {
+        "oryx.seq.hyperparams.dim": 32, "oryx.seq.window": 8,
+        "oryx.seq.hyperparams.epochs": app_shape["epochs"],
+        # /ready only once every published row is in the view: the answers
+        # are held against the whole published catalog
+        "oryx.serving.min-model-load-fraction": 1.0,
+    })
+    cpu = {"device": "cpu"} if not cuda else None
+    inputs = TopicProducer(get_broker(bus), cfg.get_string("oryx.input-topic.message.topic"))
+    update_topic = cfg.get_string("oryx.update-topic.message.topic")
+    layers = []
+    app = {**app_shape}
+    try:
+        batch = BatchLayer(cfg, update=SeqUpdate(cfg, **cpu) if cpu else None)
+        layers.append(batch)
+        batch.ensure_streams()
+        sessions = synthesize_sessions(app_shape["n_items"], app_shape["n_sessions"],
+                                       app_shape["session_len"], seed=5)
+        ts = int(time.time() * 1000)
+        t = time.perf_counter()
+        lines = seq_lines(sessions, ts - 86_400_000)
+        inputs.send_batch((None, line) for line in lines)
+        app["events"] = len(lines)
+        app["write_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        check(batch.run_generation(ts) == len(lines), "generation read short")
+        app["generation_s"] = time.perf_counter() - t
+        t_pub = time.monotonic()
+        batch.close()
+        emit({"phase": "seq-generation", **app})
+        art = ModelArtifact.read(root / "model" / str(ts))
+        e = np.asarray(art.tensors["E"], np.float32)
+        params = {k: np.asarray(art.tensors[k]) for k in ("Wx", "Wh", "b")}
+        ids = art.get_extension_list("ItemIDs")
+        row_of = {i: r for r, i in enumerate(ids)}
+        check(e.shape == (len(ids), 32), f"published E {e.shape}")
+
+        serving = ServingLayer(cfg, model_manager=SeqServingModelManager(
+            cfg, **cpu) if cpu else None)
+        layers.append(serving)
+        serving.start()
+        port = serving.port
+        app["publish_to_ready_s"] = wait_ready(port, t_pub)
+        served_model = serving.model_manager.get_model()
+        if cuda:
+            check(served_model._device_view[0].device.type == "cuda",
+                  "the seq view is not on the card")
+
+        # /recommend-next against float64, then a burst over HTTP
+        rng = np.random.default_rng(SEED + 9)
+        contexts = []
+        for j in rng.permutation(len(sessions)):
+            known = list(dict.fromkeys(
+                f"i{it}" for it in sessions[j] if f"i{it}" in row_of))
+            if known:
+                contexts.append(known[:int(rng.integers(1, min(8, len(known)) + 1))])
+            if len(contexts) == requests + burst_requests:
+                break
+        T.reset_launches()  # the app leg's serving window opens
+        served, lat = [], []
+        for c in contexts[:requests]:
+            t = time.perf_counter()
+            status, body = http_get(port, "/recommend-next/" + "/".join(c)
+                                    + f"?howMany={HOW_MANY}")
+            lat.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"/recommend-next answered {status}")
+            served.append(json.loads(body))
+        lat.sort()
+        app["recommend_next"] = {
+            **seq_next_check(np, e, params, row_of, contexts[:requests], served,
+                             HOW_MANY, 8),
+            "p50_ms": quantile(lat, 0.5), "p99_ms": quantile(lat, 0.99)}
+        paths = ["/recommend-next/" + "/".join(c) + f"?howMany={HOW_MANY}"
+                 for c in contexts[requests:]]
+        rows = http_burst(port, paths)
+        check(all(r[1] == 200 for r in rows), "a non-200 answer in the seq burst")
+        check(all(len(r[4]) == HOW_MANY for r in rows), "a short seq answer")
+        wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+        lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+        app["burst"] = {"requests": len(rows), "wall_s": wall, "qps": len(rows) / wall,
+                        "p50_ms": quantile(lat, 0.5), "p99_ms": quantile(lat, 0.99)}
+        if cuda:
+            torch.cuda.synchronize()
+        out["launches"] = dict(T.LAUNCHES)  # ... and closes
+        out["partial_launches_by_type"] = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+        if cuda:
+            check(all(v > 0 for v in out["launches"].values())
+                  and out["partial_launches_by_type"]["bfloat16"] > 0,
+                  f"the seq app launched {out['launches']}")
+        # the GRU encode alone, per request, on the serving model's device
+        enc = []
+        for c in contexts[:requests]:
+            t = time.perf_counter()
+            served_model.encode(c)
+            enc.append((time.perf_counter() - t) * 1e3)
+        enc.sort()
+        app["encode_ms"] = {"p50": quantile(enc, 0.5), "p99": quantile(enc, 0.99),
+                            "mean": sum(enc) / len(enc)}
+
+        # speed: 1,000 events, one of them a never-seen item, folded on the
+        # card; serving applies every UP row and recommends the new item
+        speed = SpeedLayer(cfg, manager=SeqSpeedModelManager(
+            cfg, **cpu) if cpu else None)
+        layers.append(speed)
+        speed.start()
+        t = time.monotonic()
+        while time.monotonic() - t < 120:
+            st = speed.manager.state
+            if st is not None and st.fraction_loaded() >= 0.8:
+                break
+            time.sleep(0.05)
+        check(speed.manager.state is not None, "seq speed model never loaded")
+        broker = get_broker(bus)
+        up_mark = broker.end_offsets(update_topic)[0]
+        # sessions of 5 random catalog items, then one session [c, new]:
+        # c is in no other event of the window, so the fold leaves its row
+        # as it was, and /recommend-next/c encodes the very context whose
+        # hidden state the new item's row was folded from
+        t_ev = ts + 1000
+        rand = [ids[int(j)] for j in rng.integers(0, len(ids), speed_events - 2)]
+        c = next(i for i in (ids[int(j)] for j in rng.permutation(len(ids)))
+                 if i not in set(rand))
+        ev = [f"u{j // 5 % 97},sp{j // 5},{item},{t_ev + 10 * j}"
+              for j, item in enumerate(rand)]
+        ev += [f"unew,snew,{c},{t_ev + 10 * len(rand)}",
+               f"unew,snew,i-new-seq,{t_ev + 10 * len(rand) + 1}"]
+        t_write = time.monotonic()
+        inputs.send_batch((None, line) for line in ev)
+        n = speed.run_batch()
+        check(n == len(ev) == speed_events, f"speed read {n} of {len(ev)} events")
+        ups = [parse_update_message(msg) for _off, key, msg in
+               broker.read(update_topic, 0, up_mark, 10 * speed_events)
+               if key == "UP"]
+        check(ups and any(u[1] == "i-new-seq" for u in ups),
+              f"the speed fold published {len(ups)} UP rows, none for the new item")
+        applied = None
+        while time.monotonic() - t_write < 60:
+            st = serving.model_manager.get_model().state
+            got, have = st.items.get_many([u[1] for u in ups])
+            if have.all() and all(np.allclose(got[j], u[2], atol=1e-6, rtol=0)
+                                  for j, u in enumerate(ups)):
+                applied = time.monotonic()
+                break
+            time.sleep(0.01)
+        check(applied is not None, "serving never applied the seq speed UPs")
+        app["event_to_applied_s"] = applied - t_write
+        # the page for [c] against float64 over the rows serving now holds
+        # (the published ones and the fold's), the new item among them
+        status, body = http_get(port, f"/recommend-next/{c}?howMany={HOW_MANY}")
+        check(status == 200, f"/recommend-next answered {status}")
+        page = json.loads(body)
+        mat, snap_ids, _v = st.items.snapshot()
+        snap_row = {i: r for r, i in enumerate(snap_ids)}
+        after = seq_next_check(np, mat, params, snap_row, [[c]], [page], HOW_MANY, 8)
+        got = [p[0] for p in page]
+        check("i-new-seq" in got, f"the new item is not recommended: {got}")
+        app["speed"] = {"events": n, "up_rows": len(ups), "context": c,
+                        "new_item_rank": got.index("i-new-seq") + 1,
+                        "page_vs_f64": after}
     finally:
         for layer in layers:
             layer.close()
@@ -2655,7 +3016,7 @@ def main() -> int:
           "build_s": build, "build_wall_s": time.monotonic() - t0})
 
     t0 = time.monotonic()
-    lines, at_serving, at_single = kernel_phase(torch, T)
+    lines, at_serving, at_single, at_seq = kernel_phase(torch, T)
     emit({"phase": "kernels-done", "checks": len(lines),
           "seconds": time.monotonic() - t0})
 
@@ -2718,6 +3079,20 @@ def main() -> int:
     loop["seconds"] = time.monotonic() - t0
     emit(loop)
     serving["lambda"] = loop
+    torch.cuda.empty_cache()
+
+    # the seq app serves through the same shared batcher, so it runs before
+    # the batcher closes
+    t0 = time.monotonic()
+    root = Path(__file__).resolve().parent / "build" / "smoke-seq"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        seq = seq_phase(torch, np, T, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seq["seconds"] = time.monotonic() - t0
+    emit(seq)
+    serving["seq"] = seq
     TopKBatcher.shared().close()
     torch.cuda.empty_cache()
     shutil.rmtree(SMOKE_BUILD / "smoke-relay", ignore_errors=True)
@@ -2742,6 +3117,20 @@ def main() -> int:
           f"a kernel of the main path never launched: {launches}")
     bf, i8 = at_serving["bfloat16"], at_serving["int8"]
     bf1 = at_single["bfloat16"]
+    sq = at_seq["bfloat16"]
+
+    def seq_case(kernel: str) -> dict:
+        """the F = 32 case's readings of one kernel, and its launches in
+        the seq phase (bf16: the seq view's type)"""
+        return {"B": sq["B"], "I": sq["I"], "F": sq["F"], "k": sq["k"],
+                "ms": sq[f"{kernel}_ms"], "wall_ms": sq[f"{kernel}_wall_ms"],
+                "plain_ms": sq[f"{kernel}_plain_ms"],
+                "bound_ms": sq[f"{kernel}_bound_ms"],
+                "bound_by": sq[f"{kernel}_bound_by"],
+                "library_ms": sq["library_ms" if kernel == "partial"
+                                 else "merge_library_ms"],
+                "launches_in_seq_phase": seq["launches"][
+                    "topk_dot_partial" if kernel == "partial" else "topk_merge"]}
     kernels = [
         {
             "name": "topk_dot_partial", "route": "cuda",
@@ -2775,6 +3164,7 @@ def main() -> int:
                 )
             ],
             "shape": {"B": bf["B"], "I": bf["I"], "F": bf["F"], "k": bf["k"]},
+            "seq": seq_case("partial"),
             "checked": True,
         },
         {
@@ -2805,6 +3195,7 @@ def main() -> int:
                    "queued": queued(bf1, ms="merge", library_ms="merge_library",
                                     whole_call_ms="whole",
                                     whole_call_library_ms="library")},
+            "seq": seq_case("merge"),
             "checked": True,
         },
     ]

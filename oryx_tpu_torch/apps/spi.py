@@ -11,8 +11,8 @@ the contract the framework layers load reflectively:
 
 ``--app <name>`` on the CLI overlays all four keys from the app's AppSpec.
 Specs are plain dotted strings naming the port's own classes — importing
-this module loads NO app code. The example and seq apps come with their
-own slices (ROADMAP queue 1).
+this module loads NO app code. The JAX package's example (wordcount) app
+is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -116,4 +116,16 @@ register_app(AppSpec(
         "oryx.input-schema.categorical-features": ["label"],
         "oryx.input-schema.target-feature": "label",
     },
+))
+
+register_app(AppSpec(
+    name="seq",
+    batch_update="oryx_tpu_torch.apps.seq.batch.SeqUpdate",
+    speed_manager="oryx_tpu_torch.apps.seq.speed.SeqSpeedModelManager",
+    serving_manager="oryx_tpu_torch.apps.seq.serving.SeqServingModelManager",
+    serving_resources=(
+        "oryx_tpu_torch.serving.resources.common",
+        "oryx_tpu_torch.serving.resources.seq",
+    ),
+    description="streaming session next-item recommender (GRU)",
 ))

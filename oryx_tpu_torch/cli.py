@@ -5,8 +5,8 @@
   python -m oryx_tpu_torch.cli speed --app als --conf oryx.conf
   python -m oryx_tpu_torch.cli serving --app als --conf oryx.conf
 
-(``--app kmeans`` and ``--app rdf`` as well; their input schema comes from
-the config, ``oryx.input-schema.*``)
+(``--app kmeans``, ``--app rdf`` and ``--app seq`` as well; the input
+schema of kmeans and rdf comes from the config, ``oryx.input-schema.*``)
 
 runs that layer on the CUDA card until interrupted (each raises without a
 card). ``--set key=value`` overrides a config key (repeatable); ``--app
@@ -34,7 +34,7 @@ def _parse_args(argv):
     p.add_argument(
         "--app", default=None, metavar="NAME",
         help="packaged app to run (registry lookup, apps/spi.py): als, "
-        "kmeans or rdf. "
+        "kmeans, rdf or seq. "
         "Overlays the app's classes and serving resources underneath any "
         "explicit --set",
     )

@@ -1,16 +1,17 @@
-"""The build-and-evaluate harnesses of ALS, RDF and k-means (the port's
-copy of those parts of oryx_tpu/ml/quality.py): synthesize data from the
-same seeds, train on the card, and measure quality — ALS's held-out AUC
-(with NaN factor rows surfaced as a first-class diagnostic), the forest's
-held-out accuracy on a planted rule, and k-means' SSE against the planted
-centers and its silhouette. ``chip_smoke.py`` runs them on the card at the
+"""The build-and-evaluate harnesses of ALS, RDF, k-means and seq (the
+port's copy of those parts of oryx_tpu/ml/quality.py): synthesize data
+from the same seeds, train on the card, and measure quality — ALS's
+held-out AUC (with NaN factor rows surfaced as a first-class diagnostic),
+the forest's held-out accuracy on a planted rule, k-means' SSE against the
+planted centers and its silhouette, and the next-item GRU's hit-rate@k on
+planted-successor sessions. ``chip_smoke.py`` runs them on the card at the
 bench's shapes.
 
 The serving recall gate (``evaluate_score_mode_recall``): the quantized
 (int8 + exact rescore) and approx score modes are measured for recall@k
 against the exact top-k on a standing synthetic corpus; either mode below
 ``MIN_SCORE_MODE_RECALL`` fails the gate, so speed can never silently buy
-wrong answers. The seq harness comes with its own slice.
+wrong answers.
 """
 
 from __future__ import annotations
@@ -476,4 +477,125 @@ def build_and_evaluate_kmeans(
         timings=timings,
         model=model,
         points_device=pts_d,
+    )
+
+
+@dataclass
+class SeqReport:
+    """Planted-transition next-item gate: sessions walk a hidden
+    successor structure, the GRU must recover it. green = hit-rate@k on
+    held-out final transitions at/above the floor."""
+
+    build_s: float
+    window_s: float          # sessionize+window ingest wall-clock
+    hit_rate: float          # hit-rate@k on held-out next items
+    k: int
+    examples: int            # training examples after windowing
+    n_items: int
+    n_sessions: int
+    epochs_run: int
+    # the trained model, for a caller that looks further at the build
+    model: object = None
+
+    @property
+    def chance(self) -> float:
+        return self.k / max(1, self.n_items)
+
+
+def synthesize_sessions(
+    n_items: int,
+    n_sessions: int,
+    session_len: int,
+    seed: int = 11,
+    follow_p: float = 0.85,
+) -> list[np.ndarray]:
+    """Planted-successor sessions (the JAX package's generator, the same
+    numpy stream): each item i has a hidden successor succ(i) = (i*7 + 3)
+    mod V; a session walks succ with probability follow_p, else jumps
+    uniformly. Chance is k/V. Returns one int64 item-row array per
+    session."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_sessions):
+        it = int(rng.integers(0, n_items))
+        seq = [it]
+        for _ in range(session_len - 1):
+            if rng.random() < follow_p:
+                it = (it * 7 + 3) % n_items
+            else:
+                it = int(rng.integers(0, n_items))
+            seq.append(it)
+        out.append(np.asarray(seq, dtype=np.int64))
+    return out
+
+
+def build_and_evaluate_seq(
+    n_items: int = 2000,
+    n_sessions: int = 3000,
+    session_len: int = 10,
+    dim: int = 32,
+    window: int = 8,
+    epochs: int = 12,
+    lr: float = 0.5,
+    k: int = 10,
+    holdout_sessions: float = 0.2,
+    seed: int = 11,
+    device=None,
+) -> SeqReport:
+    """Synthesize planted-transition sessions, window them (the app's own
+    windowing, apps/seq/common.py), train the GRU (ops/seq.py) on
+    ``device`` (the card unless the caller names the CPU) and measure
+    hit-rate@k on each held-out session's FINAL transition. The cold init
+    comes from a ``torch.Generator`` seeded from ``seed``."""
+    import torch
+
+    from oryx_tpu_torch.apps.seq.common import pad_examples, windowed_examples
+    from oryx_tpu_torch.ops.seq import next_item_hit_rate, train_gru
+
+    sessions = synthesize_sessions(n_items, n_sessions, session_len, seed=seed)
+    rng = np.random.default_rng(seed + 1_000_003)
+    eval_mask = rng.random(len(sessions)) < holdout_sessions
+    item_ids = [str(i) for i in range(n_items)]
+    item_to_row = {s: i for i, s in enumerate(item_ids)}
+
+    t0 = time.perf_counter()
+    train_sessions = {
+        f"s{j}": [str(i) for i in (s[:-1] if eval_mask[j] else s)]
+        for j, s in enumerate(sessions)
+    }
+    contexts, mask, targets = windowed_examples(
+        train_sessions, item_to_row, window
+    )
+    window_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    model, epochs_run = train_gru(
+        contexts, mask, targets,
+        n_items=n_items, dim=dim, item_ids=item_ids,
+        epochs=epochs, lr=lr,
+        seed_key=torch.Generator().manual_seed(seed),
+        device=device,
+    )
+    build_s = time.perf_counter() - t1
+
+    # held-out final transitions: context = the session minus its last
+    # event, target = the last event
+    ev_rows = [j for j in range(len(sessions)) if eval_mask[j]]
+    ctx, cmask, tgt = pad_examples(
+        [sessions[j][:-1][-window:] for j in ev_rows],
+        [int(sessions[j][-1]) for j in ev_rows],
+        window,
+    )
+    hit = next_item_hit_rate(model.e, model.params, ctx, cmask, tgt, k=k,
+                             device=device)
+    return SeqReport(
+        build_s=build_s,
+        window_s=window_s,
+        hit_rate=float(hit),
+        k=k,
+        examples=int(targets.shape[0]),
+        n_items=n_items,
+        n_sessions=n_sessions,
+        epochs_run=epochs_run,
+        model=model,
     )

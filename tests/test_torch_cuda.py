@@ -831,3 +831,96 @@ def test_shadow_sample_of_a_quantized_card_answer(cuda_device, monkeypatch):
     finally:
         model.close()
         qs.close()
+
+
+def _seq_weights(v=2000, d=32, n=256, window=8, seed=7):
+    """numpy E, GRU params and left-padded examples (contexts, mask, targets)."""
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(d)
+    e = (rng.standard_normal((v, d)) * s).astype(np.float32)
+    params = {"Wx": (rng.standard_normal((d, 3 * d)) * s).astype(np.float32),
+              "Wh": (rng.standard_normal((d, 3 * d)) * s).astype(np.float32),
+              "b": (rng.standard_normal(3 * d) * 0.1).astype(np.float32)}
+    ctx = rng.integers(0, v, (n, window)).astype(np.int32)
+    lens = rng.integers(1, window + 1, n)
+    mask = (np.arange(window)[None, :] >= window - lens[:, None]).astype(np.float32)
+    tgt = rng.integers(0, v, n).astype(np.int32)
+    return e, params, np.where(mask > 0, ctx, 0).astype(np.int32), mask, tgt
+
+
+@pytest.mark.parametrize("accum0", [0.0, 1.0])
+def test_seq_adagrad_step_on_the_card_matches_the_cpu(cuda_device, accum0):
+    """One autograd + Adagrad step of the next-item GRU from the same
+    weights on the card and on the CPU: weights and accumulators within
+    1e-4 (the embedding gather's backward sums in another order on the
+    card)."""
+    from oryx_tpu_torch.ops.seq import _adagrad_step, gru_from_numpy
+
+    e, params, ctx, mask, tgt = _seq_weights()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        w = gru_from_numpy(e, params, dev)
+        a = {k: torch.full_like(v, accum0) for k, v in w.items()}
+        w, a, loss = _adagrad_step(
+            w, a, torch.from_numpy(ctx).long().to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(tgt).long().to(dev), 0.5)
+        out[str(dev)] = ({k: v.cpu() for k, v in w.items()},
+                         {k: v.cpu() for k, v in a.items()}, float(loss))
+    (wc, ac, lc), (wg, ag, lg) = out["cpu"], out["cuda"]
+    assert abs(lc - lg) <= 1e-5
+    for k in wc:
+        torch.testing.assert_close(wg[k], wc[k], atol=1e-4, rtol=0)
+        torch.testing.assert_close(ag[k], ac[k], atol=1e-4, rtol=0)
+
+
+def test_train_gru_on_the_card_matches_the_cpu(cuda_device):
+    """From one shared warm start (same weights, same shuffle seed), two
+    epochs of minibatches on the card and on the CPU: E and the GRU
+    weights within 1e-3."""
+    from oryx_tpu_torch.ops.seq import train_gru
+
+    e, params, ctx, mask, tgt = _seq_weights(n=3000)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        got[dev], ran = train_gru(
+            ctx, mask, tgt, n_items=len(e), dim=e.shape[1],
+            item_ids=[str(j) for j in range(len(e))], epochs=2, batch=512,
+            seed_key=torch.Generator().manual_seed(3), resume_e=e,
+            resume_params=params, device=dev)
+        assert ran == 2
+    np.testing.assert_allclose(got["cuda"].e, got["cpu"].e, atol=1e-3, rtol=0)
+    for k in params:
+        np.testing.assert_allclose(got["cuda"].params[k], got["cpu"].params[k],
+                                   atol=1e-3, rtol=0)
+
+
+def test_seq_serving_on_the_card_answers_like_the_plain_path(cuda_device):
+    """The seq serving model on the card (bf16 view, the hand-written
+    partial + merge kernels through the batcher) against the same model on
+    the CPU (the plain versions): the same ids but near ties, values within
+    1e-5 (both re-rank exactly on the host), and each request launched
+    the bf16 partial kernel and the merge."""
+    from oryx_tpu_torch.apps.seq.serving import SeqServingModelManager
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.common.config import load_config
+
+    e, params, ctx, mask, _ = _seq_weights(v=50000)
+    art = ModelArtifact("seq", extensions={"dim": "32", "window": "8"},
+                        tensors={"E": e, **params})
+    ids = [f"i{j}" for j in range(len(e))]
+    art.set_extension("ItemIDs", ids)
+    managers = {}
+    for dev in ("cpu", "cuda"):
+        managers[dev] = SeqServingModelManager(load_config(), device=dev)
+        managers[dev].consume_key_message("MODEL", art.to_string())
+    T.reset_launches()
+    for r in range(32):
+        items = [ids[int(j)] for j in ctx[r][mask[r] > 0]]
+        want = managers["cpu"].get_model().next_items(items, 10, exclude=set(items))
+        got = managers["cuda"].get_model().next_items(items, 10, exclude=set(items))
+        np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                                   atol=1e-5, rtol=0)
+        for (a, va), (b, vb) in zip(want, got):
+            assert a == b or abs(va - vb) <= 1e-5
+    assert T.PARTIAL_LAUNCHES_BY_TYPE["bfloat16"] >= 32
+    assert T.LAUNCHES["topk_merge"] >= 32

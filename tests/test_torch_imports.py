@@ -64,6 +64,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "oryx_tpu_torch.common.perfstats", "oryx_tpu_torch.serving.viewsync",
     } <= names
     assert set(KMEANS_RDF_MODULES) <= names
+    assert set(SEQ_MODULES) <= names
 
 
 # the k-means and RDF apps' modules and what they share
@@ -93,6 +94,42 @@ def test_kmeans_rdf_modules_import_with_jax_blocked():
         from oryx_tpu_torch.ml.quality import (
             build_and_evaluate_kmeans, build_and_evaluate_rdf)
         assert callable(ModelArtifact.to_pmml_xml)
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+# the seq app's modules
+SEQ_MODULES = (
+    "oryx_tpu_torch.ops.seq", "oryx_tpu_torch.apps.seq",
+    "oryx_tpu_torch.apps.seq.common", "oryx_tpu_torch.apps.seq.state",
+    "oryx_tpu_torch.apps.seq.batch", "oryx_tpu_torch.apps.seq.speed",
+    "oryx_tpu_torch.apps.seq.serving", "oryx_tpu_torch.serving.resources.seq",
+    "oryx_tpu_torch.ml.quality",
+)
+
+
+def test_seq_modules_import_with_jax_blocked():
+    """Each module of the seq app, imported alone in a fresh process with
+    jax blocked, loads no module of the JAX package; the trainer, the
+    weight carry-over and the quality harness are there."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {SEQ_MODULES!r}:
+            importlib.import_module(name)
+        from oryx_tpu_torch.ops.seq import gru_from_numpy, train_gru
+        from oryx_tpu_torch.ml.quality import build_and_evaluate_seq
         leaked = sorted(
             k for k in sys.modules
             if k == "oryx_tpu" or k.startswith("oryx_tpu.")
