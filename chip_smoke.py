@@ -160,7 +160,34 @@ Phases, each printing JSON lines:
    them a never-seen item: serving must apply every UP row and recommend
    the new item. The kernel launches of the app's serving leg count
    toward the kernels line, where each kernel also carries its readings
-   in the seq case of phase 2 (512 x 50,000 x 32, k = 32).
+   in the seq case of phase 2 (512 x 50,000 x 32, k = 32);
+10. kafka (run after phase 6): the ALS loop deployed as users deploy it,
+   separate `python -m oryx_tpu_torch.cli` processes joined only by
+   kafka:// topics on one tests/torch_kafka_testbroker.py broker on
+   127.0.0.1 (the input topic at 4 partitions, the update topic at 1 with
+   a 16 KiB max message, so the model goes out as MODEL-CHUNKs +
+   MODEL-REF): `setup`; `config`, which must name the kafka:// URIs;
+   `input` of phase 6's 1M events (events/s produced); `batch`, its group
+   reset to the earliest offset, until its first generation is on the
+   topic, then SIGTERM; `serving` with oryx.serving.api.processes = 2 on
+   one port in score-mode exact, then quantized: each replica's /ready,
+   the replicas as new compute apps in nvidia-smi, a burst of 2,048
+   /recommend on 64 connections (qps, p50/p99, every answer 200, recall@10
+   against the float64 ranking of the published UP rows >= 0.99 exact,
+   >= 0.95 quantized), and each replica's kernel launches read from its
+   /metrics (they count toward the kernels line); `speed` folding 20,000
+   events from `input` and one gzip, snappy, lz4 and zstd batch of a
+   foreign producer (lz4 and zstd where the system library is found):
+   both replicas must serve the new users (seconds from the write);
+   `tail` across the batch and speed legs (MODEL-REF and UP lines);
+   `perf --url` and `loadtest` against the replicas; `flight --kind
+   process-start --kind generation` (both replicas' starts and the
+   generation). Then, in-process on the same broker, the wordcount
+   example app over 10,000 lines (/distinct against a plain count) and
+   `import-pmml` of a 100 x 20 k-means PMML served on the card (256
+   /assign against the float64 nearest center). The line names the
+   crc32c tier and whether the file:// buses ran through the native
+   appender.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. With --ab-parent DIR the script runs the
@@ -171,10 +198,12 @@ non-zero; without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gzip
 import itertools
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2054,6 +2083,609 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the deployment over kafka:// through the CLI (after phase 6)
+# ---------------------------------------------------------------------------
+
+KAFKA_MAX_MESSAGE = 16 << 10  # the update topic's: the model goes out chunked
+KAFKA_PARTITIONS = {"input": 4, "update": 1}  # the reference's
+KAFKA_REPLICAS = 2
+KAFKA_BATCH_INTERVAL_S = 5  # the first generation starts this long after batch
+KAFKA_BURST = 2048
+KAFKA_SPEED_EVENTS = 20_000
+KAFKA_TAIL_S = 2
+WORDCOUNT_LINES = 10_000
+PMML_CENTERS = (100, 20)  # k-means centers x dimensions
+PMML_ASSIGN = 256
+
+
+def load_test_broker():
+    """tests/torch_kafka_testbroker.py, by path (the tests are no package
+    the smoke imports)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_kafka_testbroker.py"
+    spec = importlib.util.spec_from_file_location("torch_kafka_testbroker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def foreign_batch(wire, lines: list, codec: int, compress) -> bytes:
+    """A record batch as a foreign producer writes it (null keys, the codec
+    in the attributes, CRC-32C over attributes..end; the layout of
+    tests/test_kafka.py's _foreign_batch)."""
+    body = wire.Writer()
+    for i, line in enumerate(lines):
+        value = line.encode()
+        rec = (wire.Writer().i8(0).varint(i * 17).varint(i).varint(-1)
+               .varint(len(value)).raw(value).varint(0).done())
+        body.varint(len(rec)).raw(rec)
+    n = len(lines)
+    crced = (wire.Writer().i16(codec).i32(n - 1).i64(1_700_000_000_000)
+             .i64(1_700_000_000_000 + (n - 1) * 17).i64(-1).i16(-1).i32(-1)
+             .i32(n).raw(compress(body.done())).done())
+    after = wire.Writer().i32(-1).i8(2).u32(wire.crc32c(crced)).raw(crced).done()
+    return wire.Writer().i64(0).i32(len(after)).raw(after).done()
+
+
+def snappy_literals(data: bytes) -> bytes:
+    """Valid snappy of literal elements only (what a lazy compressor may
+    emit): the uncompressed length as a uvarint, then 60-byte literals."""
+    out, n = bytearray(), len(data)
+    while True:
+        out.append((n & 0x7F) | (0x80 if n >> 7 else 0))
+        n >>= 7
+        if not n:
+            break
+    for pos in range(0, len(data), 60):
+        chunk = data[pos:pos + 60]
+        out.append((len(chunk) - 1) << 2)
+        out += chunk
+    return bytes(out)
+
+
+def replica_scrape(port: int, want: int, limit_s: float = 60) -> dict:
+    """{replica name: {"pid", "healthz", "launches", "by_type"}} of every
+    replica behind the shared port: /healthz and /metrics on one
+    keep-alive connection reach one replica; new connections spread
+    across the replicas (SO_REUSEPORT)."""
+    import http.client
+    import re
+
+    pat = re.compile(r'oryx_cuda_kernel_launches_total\{kernel="(\w+)",type="(\w+)"\} (\S+)')
+    seen: dict = {}
+    t0 = time.monotonic()
+    while len(seen) < want and time.monotonic() - t0 < limit_s:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            c.request("GET", "/healthz")
+            r = c.getresponse()
+            hz = json.loads(r.read())
+            c.request("GET", "/metrics")
+            text = c.getresponse().read().decode()
+        except (OSError, ValueError):
+            time.sleep(0.1)
+            continue
+        finally:
+            c.close()
+        launches = {"topk_dot_partial": 0, "topk_merge": 0}
+        by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
+        for kernel, typ, v in pat.findall(text):
+            launches[kernel] += int(float(v))
+            if kernel == "topk_dot_partial":
+                by_type[typ] = int(float(v))
+        seen[hz.get("replica")] = {"healthz": hz, "launches": launches,
+                                   "by_type": by_type}
+    check(len(seen) == want, f"reached replicas {sorted(seen)}, not {want}")
+    return seen
+
+
+class TopicLog:
+    """The records of partition 0 of one topic, pulled incrementally."""
+
+    def __init__(self, broker, topic: str):
+        self.broker, self.topic, self.rows = broker, topic, []
+
+    def pull(self) -> list:
+        """The records that arrived since the last pull."""
+        new = []
+        while True:
+            at = self.rows[-1][0] + 1 if self.rows else 0
+            recs = self.broker.read(self.topic, 0, at, 10_000)
+            if not recs:
+                return new
+            self.rows.extend(recs)
+            new.extend(recs)
+
+    def keys(self) -> list:
+        return [k for _, k, _ in self.rows]
+
+
+def on_one_replica(port: int, path: str) -> tuple:
+    """(replica name, status, body) of GET /healthz and then GET path on
+    one keep-alive connection, so one replica answers both; (None, None,
+    None) while nothing listens."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", "/healthz")
+        hz = json.loads(c.getresponse().read())
+        c.request("GET", path, headers={"Accept": "application/json"})
+        r = c.getresponse()
+        return hz.get("replica"), r.status, r.read()
+    except (OSError, ValueError):
+        return None, None, None
+    finally:
+        c.close()
+
+
+def compute_apps() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def plain_wordcount(lines: list) -> dict:
+    """Per word, how many distinct other words share a line with it."""
+    others: dict = {}
+    for line in lines:
+        words = set(line.split())
+        for w in words:
+            others.setdefault(w, set()).update(words - {w})
+    return {w: len(o) for w, o in others.items() if o}
+
+
+def kafka_phase(np, root: Path, device="cuda", shape=SMALL_SHAPE,
+                burst=KAFKA_BURST, speed_events=KAFKA_SPEED_EVENTS,
+                wordcount_lines=WORDCOUNT_LINES, centers=PMML_CENTERS,
+                assign_requests=PMML_ASSIGN, max_message=KAFKA_MAX_MESSAGE) -> dict:
+    """Phase 10: the ALS loop deployed as separate `python -m
+    oryx_tpu_torch.cli` processes joined only by kafka:// topics on one
+    test broker (tests/torch_kafka_testbroker.py) on 127.0.0.1; then the
+    example app and an imported PMML model on the same broker."""
+    from oryx_tpu_torch.apps.example.serving import ExampleServingModelManager
+    from oryx_tpu_torch.apps.kmeans.serving import KMeansServingModelManager
+    from oryx_tpu_torch.apps.spi import app_overlay
+    from oryx_tpu_torch.bus import compress, filelog, kafkawire
+    from oryx_tpu_torch.bus.broker import get_broker, topics
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.common.ioutil import choose_free_port
+    from oryx_tpu_torch.layers import BatchLayer
+    from oryx_tpu_torch.ml.synth import synthesize_interactions
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    cuda = device == "cuda"
+    repo = Path(__file__).resolve().parent
+    logs = root / "logs"
+    for d in (logs, root / "tmp"):
+        d.mkdir(parents=True, exist_ok=True)
+    # every child keeps its scratch (the artifact relay's cache) in root
+    env = dict(os.environ, TMPDIR=str(root / "tmp"), PYTHONPATH=str(repo))
+    procs: dict = {}
+
+    def start(name: str, *args, **kw) -> subprocess.Popen:
+        out = kw.pop("stdout", None) or open(logs / f"{name}.out", "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "oryx_tpu_torch.cli", *args], cwd=repo,
+            env=env, stdout=out, stderr=open(logs / f"{name}.log", "w"),
+            start_new_session=True, **kw)
+        procs[name] = p
+        return p
+
+    def run(name: str, *args, stdin: str | None = None, timeout=300) -> tuple:
+        t = time.monotonic()
+        with open(logs / f"{name}.log", "w") as err:
+            p = subprocess.run(
+                [sys.executable, "-m", "oryx_tpu_torch.cli", *args], cwd=repo,
+                env=env, input=stdin, text=True, stdout=subprocess.PIPE,
+                stderr=err, timeout=timeout)
+        check(p.returncode == 0, f"cli {args[0]} exited {p.returncode}: "
+              + (logs / f"{name}.log").read_text()[-2000:])
+        return p.stdout, time.monotonic() - t
+
+    def stop(name: str, sig=signal.SIGTERM) -> int:
+        p = procs.pop(name)
+        if p.poll() is None:
+            os.killpg(p.pid, sig)
+        try:
+            return p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            return p.wait(timeout=30)
+
+    def alive(what: str) -> None:
+        for name, p in procs.items():
+            check(p.poll() is None, f"{name} exited {p.returncode} while {what}: "
+                  + (logs / f"{name}.log").read_text()[-3000:])
+
+    testbroker = load_test_broker()
+    srv = testbroker.LocalKafkaTestBroker().start()
+    out = {"phase": "kafka", "broker": srv.uri,
+           "shape": {"users": shape[0], "items": shape[1], "interactions": shape[2]},
+           "replicas": KAFKA_REPLICAS}
+    port = choose_free_port()
+    conf = root / "oryx.conf"
+    conf.write_text("\n".join(f"{k} = {json.dumps(v)}" for k, v in {
+        "oryx.id": "smoke-kafka",
+        "oryx.input-topic.broker": srv.uri, "oryx.update-topic.broker": srv.uri,
+        "oryx.input-topic.message.partitions": KAFKA_PARTITIONS["input"],
+        "oryx.update-topic.message.partitions": KAFKA_PARTITIONS["update"],
+        "oryx.update-topic.message.max-size": max_message,
+        "oryx.update-topic.artifact-transfer": True,
+        "oryx.batch.storage.data-dir": str(root / "data"),
+        "oryx.batch.storage.model-dir": str(root / "model"),
+        "oryx.monitoring.quarantine.dir": str(root / "quarantine"),
+        "oryx.monitoring.flight.dir": str(root / "flight"),
+        "oryx.serving.api.port": port,
+        "oryx.serving.api.processes": KAFKA_REPLICAS,
+        "oryx.serving.min-model-load-fraction": 1.0,
+        "oryx.speed.min-model-load-fraction": 1.0,
+        "oryx.batch.streaming.generation-interval-sec": KAFKA_BATCH_INTERVAL_S,
+        "oryx.speed.streaming.generation-interval-sec": 1,
+        "oryx.als.hyperparams.features": TRAIN_HP["features"],
+        "oryx.als.hyperparams.iterations": TRAIN_HP["iterations"],
+        "oryx.als.hyperparams.lambda": TRAIN_HP["lam"],
+        "oryx.als.hyperparams.alpha": TRAIN_HP["alpha"],
+        "oryx.als.compute-dtype": "bfloat16",
+        "oryx.compute.platform": "auto" if cuda else "cpu",
+    }.items()) + "\n")
+    flags = ["--app", "als", "--conf", str(conf)]
+    broker = get_broker(srv.uri)
+    try:
+        # 1. the topics, and the effective config naming them
+        run("setup", "setup", *flags)
+        check(broker.num_partitions("OryxInput") == KAFKA_PARTITIONS["input"]
+              and broker.num_partitions("OryxUpdate") == KAFKA_PARTITIONS["update"],
+              "setup made other partitions")
+        lines, _ = run("config", "config", *flags)
+        lines = lines.splitlines()
+        for w in ("input", "update"):
+            check(f"oryx.{w}-topic.broker={srv.uri}" in lines,
+                  f"cli config does not name the {w} topic's kafka:// URI")
+
+        # 2. phase 6's events through `cli input`
+        users, items, values = synthesize_interactions(*shape, seed=TRAIN_HP["seed"])
+        ts0 = int(time.time() * 1000)
+        events = event_lines(np, users, items, values, ts0 - 86_400_000)
+        _, wall = run("input", "input", *flags, stdin="\n".join(events) + "\n")
+        said = (logs / "input.log").read_text().split()
+        produce_s = float(said[said.index("in") + 1])
+        check(sum(broker.end_offsets("OryxInput")) == shape[2], "input short")
+        out["input"] = {"events": shape[2], "produce_s": produce_s,
+                        "events_per_s": shape[2] / produce_s, "wall_s": wall}
+
+        # 3. one generation of `cli batch`, its group reset to the earliest
+        # offset first (the operator's reset of a new group), so it reads
+        # the events written before it started
+        broker.commit_offsets("OryxGroup-smoke-kafka-batch", "OryxInput",
+                              {p: 0 for p in range(KAFKA_PARTITIONS["input"])})
+        start("tail", "tail", *flags, stdout=open(logs / "tail.out", "w"))
+        t0 = time.monotonic()
+        start("batch", "batch", *flags)
+        upd = TopicLog(broker, "OryxUpdate")
+        t_ref = n_rows = None
+        while time.monotonic() - t0 < 600:
+            alive("the generation ran")
+            upd.pull()
+            keys = upd.keys()
+            if t_ref is None and "MODEL-REF" in keys:
+                t_ref = time.monotonic() - t0
+                # the generation's factor rows follow its MODEL-REF: one
+                # per user and item of the artifact it names
+                art = ModelArtifact.read(next(m for _, k, m in upd.rows
+                                              if k == "MODEL-REF"))
+                n_rows = (len(art.get_extension_list("XIDs"))
+                          + len(art.get_extension_list("YIDs")))
+            if t_ref is not None and keys.count("UP") >= n_rows:
+                break
+            time.sleep(0.1)
+        t_all = time.monotonic() - t0
+        check(keys.count("UP") >= n_rows, f"{keys.count('UP')} UP rows, not {n_rows}")
+        check(stop("batch") == 0, "batch did not stop cleanly on SIGTERM")
+        check(keys.count("MODEL-CHUNK") > 1 and keys.count("MODEL-REF") == 1,
+              f"the generation was not chunked: {keys.count('MODEL-CHUNK')} chunks")
+        gen_ts = int(Path(next(m for _, k, m in upd.rows if k == "MODEL-REF")).name)
+        out["batch"] = {"start_to_model_ref_s": t_ref, "start_to_published_s": t_all,
+                        "interval_s": KAFKA_BATCH_INTERVAL_S, "generation": gen_ts,
+                        "chunks": keys.count("MODEL-CHUNK"), "up_rows": keys.count("UP")}
+
+        # the published factors and known items, as the UP rows carry them
+        x, y, known = {}, {}, {}
+        for _, k, m in upd.rows:
+            if k == "UP":
+                row = json.loads(m)
+                (x if row[0] == "X" else y)[row[1]] = row[2]
+                if row[0] == "X":
+                    known[row[1]] = set(row[3])
+        yids = sorted(y)
+        ymat = np.asarray([y[i] for i in yids], np.float64)
+        col = {i: j for j, i in enumerate(yids)}
+        probe = [str(u) for u in np.random.default_rng(SEED + 11).choice(
+            sorted(x), burst, replace=False)]
+        ref = {}
+        for u in probe:
+            s = ymat @ np.asarray(x[u], np.float64)
+            for i in known[u]:
+                s[col[i]] = -np.inf
+            ref[u] = {yids[j] for j in np.argsort(-s, kind="stable")[:HOW_MANY]}
+        paths = [f"/recommend/{u}?howMany={HOW_MANY}" for u in probe]
+
+        # 4. serving replicas on the card, in each score mode
+        out["serving"] = {}
+        launches = {"topk_dot_partial": 0, "topk_merge": 0}
+        by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
+        for mode in ("exact", "quantized"):
+            before = compute_apps() if cuda else []
+            t0 = time.monotonic()
+            sup = start(f"serving-{mode}", "serving", *flags, "--set",
+                        f"oryx.serving.api.score-mode={mode}")
+            ready: dict = {}
+            while len(ready) < KAFKA_REPLICAS and time.monotonic() - t0 < 300:
+                alive(f"{mode} replicas started")
+                name, status, _ = on_one_replica(port, "/ready")
+                if status == 200 and name not in ready:
+                    ready[name] = time.monotonic() - t0
+                time.sleep(0.02)
+            check(len(ready) == KAFKA_REPLICAS, f"{mode}: ready replicas {ready}")
+            kids = [int(p) for p in subprocess.run(
+                ["pgrep", "-P", str(sup.pid)], capture_output=True,
+                text=True).stdout.split()]
+            check(len(kids) == KAFKA_REPLICAS, f"{mode}: replica processes {kids}")
+            line = {"ready_s": ready, "pids": kids}
+            if cuda:
+                # every replica holds its own CUDA context; nvidia-smi names
+                # the processes by pid where it shares their pid namespace
+                after = compute_apps()
+                line["nvidia_smi_pids"] = after
+                line["nvidia_smi_new_apps"] = len(after) - len(before)
+                in_ns = all(str(k) in after for k in kids)
+                check(in_ns or len(after) - len(before) >= KAFKA_REPLICAS,
+                      f"{mode}: replicas {kids} not on the card: {before} -> {after}")
+                line["pids_in_nvidia_smi"] = in_ns
+            rows = http_burst(port, paths)
+            check(all(r[1] == 200 for r in rows),
+                  f"{mode}: non-200 in the burst: "
+                  f"{sorted({r[1] for r in rows if r[1] != 200})}")
+            lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+            wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+            hits = sum(len(ref[probe[r[0]]] & set(r[4])) for r in rows)
+            recall = hits / (HOW_MANY * len(rows))
+            check(recall >= MIN_RECALL[mode], f"{mode} recall@10 {recall}")
+            line.update({"requests": len(rows), "connections": CLIENT_PROCS * CLIENT_CONNS,
+                         "qps": len(rows) / wall, "p50_ms": quantile(lat, 0.5),
+                         "p99_ms": quantile(lat, 0.99), "recall_at_10": recall})
+            out["serving"][mode] = line
+            if mode == "exact":
+                reps = replica_scrape(port, KAFKA_REPLICAS)
+                line["launches_by_replica"] = {k: v["launches"] for k, v in reps.items()}
+                for v in reps.values():
+                    for k in launches:
+                        launches[k] += v["launches"][k]
+                    for k in by_type:
+                        by_type[k] += v["by_type"][k]
+                stop(f"serving-{mode}")
+        port_url = f"http://127.0.0.1:{port}"
+
+        # 5. the speed layer folds events, four of them in foreign batches
+        t0 = time.monotonic()
+        start("speed", "speed", *flags)
+
+        folded_users: set = set()
+
+        def folded(user: str) -> bool:
+            for _, k, m in upd.pull():
+                if k == "UP" and m.startswith('["X",'):
+                    folded_users.add(json.loads(m)[1])
+            return user in folded_users
+
+        # a probe event a second until one is folded: the speed layer drops
+        # events until its model has loaded
+        for n in range(600):
+            alive("the speed layer loaded its model")
+            broker.send("OryxInput", None, f"u-probe-{n},i{int(items[0])},1,{ts0}")
+            t = time.monotonic()
+            while time.monotonic() - t < 1.0 and not folded(f"u-probe-{n}"):
+                time.sleep(0.05)
+            if folded(f"u-probe-{n}"):
+                break
+        check(folded(f"u-probe-{n}"), "the speed layer never folded a probe")
+        speed = {"start_to_first_fold_s": time.monotonic() - t0, "probes": n + 1}
+        rng = np.random.default_rng(SEED + 12)
+        su, si = rng.choice(users, speed_events), rng.choice(items, speed_events)
+        lines = event_lines(np, su, si, np.full(speed_events, 2.0), ts0)
+        known_item = f"i{int(items[0])}"
+        for j in range(SPEED_NEW):
+            lines[j] = f"u-new-{j},{known_item},3,{ts0 + j}"
+        codecs = {"gzip": (1, gzip.compress), "snappy": (2, snappy_literals),
+                  "lz4": (3, compress.lz4f_compress), "zstd": (4, compress.zstd_compress)}
+        ran = {}
+        for name, (codec, fn) in codecs.items():
+            try:
+                ran[name] = foreign_batch(kafkawire, [f"u-codec-{name},{known_item},3,{ts0}"],
+                                          codec, fn)
+            except compress.CodecUnavailable:
+                check(name in ("lz4", "zstd"), f"{name} must always run")
+        t_write = time.monotonic()
+        for batch in ran.values():
+            srv.append_raw_batch("OryxInput", 0, batch)
+        _, wall = run("speed-input", "input", *flags, stdin="\n".join(lines) + "\n")
+        t_written = time.monotonic()
+        served = {}
+        for user in ["u-new-0"] + [f"u-codec-{c}" for c in ran]:
+            seen: set = set()
+            while len(seen) < KAFKA_REPLICAS and time.monotonic() - t_written < 120:
+                alive(f"{user} was folded")
+                name, status, _ = on_one_replica(
+                    port, f"/recommend/{user}?howMany={HOW_MANY}")
+                if status == 200:
+                    seen.add(name)
+                else:
+                    time.sleep(0.005)
+            check(len(seen) == KAFKA_REPLICAS, f"{user} served by {seen}")
+            served[user] = time.monotonic() - t_written
+        speed.update({"events": speed_events + len(ran), "input_wall_s": wall,
+                      "write_to_served_s": time.monotonic() - t_write,
+                      "written_to_served_s": served,
+                      "codecs": {c: c in ran for c in codecs}})
+        out["speed"] = speed
+
+        # 6. tail, perf and flight against the running deployment
+        time.sleep(KAFKA_TAIL_S)
+        stop("tail", signal.SIGINT)
+        tailed = [ln.split("\t", 2) for ln in
+                  (logs / "tail.out").read_text().splitlines()]
+        keys = [t[1] for t in tailed if t[0] == "OryxUpdate"]
+        out["tail"] = {"update": {k: keys.count(k) for k in sorted(set(keys))},
+                       "input": sum(t[0] == "OryxInput" for t in tailed)}
+        check("MODEL-REF" in keys and keys.count("UP") >= n_rows
+              and out["tail"]["input"] >= speed_events,
+              f"cli tail printed {out['tail']}")
+        report, _ = run("perf", "perf", *flags, "--url", port_url)
+        check(report.startswith("latency budget") and "(no phase samples yet)"
+              not in report.split("device idle gaps")[0],
+              f"cli perf rendered no phases: {report[:400]}")
+        out["perf_report_lines"] = len(report.splitlines())
+        paths_file = root / "paths.txt"
+        paths_file.write_text("\n".join(paths[:256]) + "\n")
+        report, _ = run("loadtest", "loadtest", *flags, "--url", port_url,
+                        "--paths", str(paths_file), "--duration", "2", "--workers", "16")
+        out["loadtest"] = json.loads(report.strip().splitlines()[-1])
+        check(out["loadtest"]["errors"] == 0, f"cli loadtest: {out['loadtest']}")
+        reps = replica_scrape(port, KAFKA_REPLICAS)
+        q = out["serving"]["quantized"]
+        q["launches_by_replica"] = {k: v["launches"] for k, v in reps.items()}
+        for v in reps.values():
+            for k in launches:
+                launches[k] += v["launches"][k]
+            for k in by_type:
+                by_type[k] += v["by_type"][k]
+        flight, _ = run("flight", "flight", *flags, "--kind", "process-start",
+                        "--kind", "generation")
+        evs = [json.loads(ln) for ln in flight.splitlines()]
+        starts = {e.get("replica"): e["pid"] for e in evs if e["kind"] == "process-start"}
+        check(set(q["pids"]) <= set(starts.values()),
+              f"the flight ring lacks the replicas' starts: {starts}")
+        gens = {e.get("generation") for e in evs if e["kind"] == "generation"}
+        check(gen_ts in gens, f"the flight ring lacks generation {gen_ts}: {gens}")
+        out["flight"] = {"events": len(evs), "replicas": sorted(k for k in starts if k)}
+        stop("serving-quantized")
+        stop("speed")
+        out["launches"], out["partial_launches_by_type"] = launches, by_type
+        if cuda:
+            check(all(v > 0 for v in launches.values()) and by_type["bfloat16"] > 0
+                  and by_type["int8"] > 0, f"the replicas launched {launches} {by_type}")
+
+        # 7. the example app on the same broker, in-process
+        t0 = time.monotonic()
+        overlay = dict(app_overlay("example"))
+        overlay.update({
+            "oryx.id": "smoke-wordcount",
+            "oryx.input-topic.broker": srv.uri, "oryx.update-topic.broker": srv.uri,
+            "oryx.input-topic.message.topic": "WordInput",
+            "oryx.update-topic.message.topic": "WordUpdate",
+            "oryx.batch.storage.data-dir": str(root / "wc-data"),
+            "oryx.batch.storage.model-dir": str(root / "wc-model"),
+            "oryx.monitoring.flight.dir": str(root / "flight"),
+            "oryx.serving.api.port": 0,
+        })
+        wcfg = load_config(overlay=overlay)
+        for t in ("WordInput", "WordUpdate"):
+            topics.maybe_create(srv.uri, t, 2 if t == "WordInput" else 1)
+        rng = np.random.default_rng(SEED + 13)
+        vocab = [f"w{j}" for j in range(2000)]
+        words = [" ".join(rng.choice(vocab, int(rng.integers(1, 8))))
+                 for _ in range(wordcount_lines)]
+        batch = BatchLayer(wcfg)
+        batch.ensure_streams()
+        broker.send_batch("WordInput", [(None, ln) for ln in words])
+        check(batch.run_generation() == wordcount_lines, "wordcount read short")
+        batch.close()
+        serving = ServingLayer(wcfg, model_manager=ExampleServingModelManager(wcfg))
+        serving.start()
+        try:
+            wait_ready(serving.port, t0)
+            status, body = http_get(serving.port, "/distinct")
+            want = plain_wordcount(words)
+            check(status == 200 and json.loads(body) == want,
+                  "/distinct differs from the plain count")
+            w0 = max(want, key=want.get)
+            check(json.loads(http_get(serving.port, f"/distinct/{w0}")[1]) == want[w0],
+                  f"/distinct/{w0}")
+        finally:
+            serving.close()
+        out["example"] = {"lines": wordcount_lines, "words": len(want),
+                          "seconds": time.monotonic() - t0}
+
+        # 8. `cli import-pmml` of a k-means model, served on the card
+        t0 = time.monotonic()
+        k, dims = centers
+        c = np.random.default_rng(SEED + 14).normal(0, 3, (k, dims)).astype(np.float32)
+        art = ModelArtifact("kmeans", extensions={"k": str(k)}, tensors={"centers": c})
+        art.content["counts"] = [int(v) for v in range(1, k + 1)]
+        pmml = root / "kmeans.pmml"
+        pmml.write_text(art.to_pmml_xml())
+        kflags = ["--conf", str(conf), "--set", "oryx.input-topic.message.topic=KMeansInput",
+                  "--set", "oryx.update-topic.message.topic=KMeansUpdate"]
+        run("setup-kmeans", "setup", *kflags)
+        run("import-pmml", "import-pmml", *kflags, "--pmml", str(pmml))
+        [(_, key, _m)] = broker.read("KMeansUpdate", 0, 0, 10)
+        overlay = dict(app_overlay("kmeans"))
+        overlay.update({
+            "oryx.id": "smoke-pmml",
+            "oryx.input-topic.broker": srv.uri, "oryx.update-topic.broker": srv.uri,
+            "oryx.input-topic.message.topic": "KMeansInput",
+            "oryx.update-topic.message.topic": "KMeansUpdate",
+            "oryx.batch.storage.model-dir": str(root / "model"),
+            "oryx.monitoring.flight.dir": str(root / "flight"),
+            "oryx.serving.api.port": 0,
+            "oryx.input-schema.num-features": dims,
+            "oryx.input-schema.numeric-features": [str(j) for j in range(dims)],
+        })
+        kcfg = load_config(overlay=overlay)
+        manager = KMeansServingModelManager(kcfg, **({} if cuda else {"device": "cpu"}))
+        check(manager.device.type == device, f"k-means serving on {manager.device}")
+        serving = ServingLayer(kcfg, model_manager=manager)
+        serving.start()
+        try:
+            wait_ready(serving.port, t0)
+            rng = np.random.default_rng(SEED + 15)
+            sent = csv_lines(np, c[rng.integers(0, k, assign_requests)]
+                             + rng.normal(0, 1.0, (assign_requests, dims)), "%.5f")
+            ids = []
+            for datum in sent:
+                status, body = http_get(serving.port, f"/assign/{datum}")
+                check(status == 200, f"/assign answered {status}")
+                ids.append(int(json.loads(body)))
+            d2, ids_ref, scale = f64_assign(np, parsed(np, sent), c)
+            ties = near_ties(np, d2, ids_ref, np.asarray(ids), scale)
+        finally:
+            serving.close()
+        out["pmml"] = {"centers": list(centers), "published_as": key,
+                       "assign_requests": assign_requests, "near_tie_points": ties,
+                       "device": str(manager.device), "seconds": time.monotonic() - t0}
+
+        out["crc32c_tier"] = {"crc32c_ext": "google_crc32c", "crc32c_native": "native",
+                              "_crc32c_py": "python"}[kafkawire._crc32c_impl.__name__]
+        # the file log resolves its tier once a process: the same for the
+        # file:// buses of phases 6-9
+        out["native_appender_in_file_buses"] = filelog._maybe_native() is not None
+    except BaseException:
+        for name in list(procs):
+            print(f"--- {name} log tail ---\n"
+                  + (logs / f"{name}.log").read_text()[-3000:], file=sys.stderr)
+        raise
+    finally:
+        for name in list(procs):
+            stop(name, signal.SIGKILL if name == "tail" else signal.SIGTERM)
+        broker.close()
+        srv.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: k-means (the batch build at the bench's shape, then the app)
 # ---------------------------------------------------------------------------
 
@@ -2315,12 +2947,28 @@ def kmeans_phase(torch, np, root: Path, device="cuda", shape=KMEANS_SHAPE,
         shift = float(np.abs(moved - centers[target]).max())
         err = float(np.abs(moved - want).max())
         check(shift > 0.05 and err <= 1e-5, f"center moved {shift}, {err} from expected")
-        status, body = http_get(port, "/distanceToNearest/" + csv_lines(
-            np, want[None].astype(np.float32), "%.5f")[0])
-        check(status == 200 and float(json.loads(body)) < 1e-2,
-              "/distanceToNearest does not see the moved center")
+        datum = csv_lines(np, want[None].astype(np.float32), "%.5f")[0]
+        status, body = http_get(port, "/distanceToNearest/" + datum)
+        check(status == 200, f"/distanceToNearest answered {status}")
+        # the served distance is the f32 expansion |x|^2 - 2 x.c + |c|^2
+        # (ops/kmeans.py, as in the JAX package), good to NEAR_TIE_D2 of
+        # its scale: the moved center must lie within that, the old one
+        # outside it
+        point = parsed(np, [datum]).astype(np.float64)
+        now = centers.astype(np.float64)
+        now[target] = moved
+        _, _, scale = f64_assign(np, point, now)
+        bound = NEAR_TIE_D2 * float(scale[0])
+        old_d2 = float(((point[0] - centers[target]) ** 2).sum())
+        served = float(json.loads(body))
+        check(old_d2 > bound and served ** 2 <= bound,
+              f"/distanceToNearest does not see the moved center: {served} "
+              f"(roundoff bound {bound ** 0.5}, old center at {old_d2 ** 0.5})")
         app["speed"] = {"events": speed_events, "center_shift": shift,
-                        "max_err_vs_online_update": err}
+                        "max_err_vs_online_update": err,
+                        "distance_to_nearest": served,
+                        "distance_bound": bound ** 0.5,
+                        "old_center_distance": old_d2 ** 0.5}
     finally:
         for layer in layers:
             layer.close()
@@ -3079,6 +3727,20 @@ def main() -> int:
     loop["seconds"] = time.monotonic() - t0
     emit(loop)
     serving["lambda"] = loop
+    torch.cuda.empty_cache()
+
+    # the deployment over kafka://: separate CLI processes, replicas of their
+    # own on the card
+    t0 = time.monotonic()
+    root = Path(__file__).resolve().parent / "build" / "smoke-kafka"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        kafka = kafka_phase(np, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    kafka["seconds"] = time.monotonic() - t0
+    emit(kafka)
+    serving["kafka"] = kafka
     torch.cuda.empty_cache()
 
     # the seq app serves through the same shared batcher, so it runs before

@@ -11,8 +11,7 @@ the contract the framework layers load reflectively:
 
 ``--app <name>`` on the CLI overlays all four keys from the app's AppSpec.
 Specs are plain dotted strings naming the port's own classes — importing
-this module loads NO app code. The JAX package's example (wordcount) app
-is not ported yet (ROADMAP queue 1).
+this module loads NO app code.
 """
 
 from __future__ import annotations
@@ -116,6 +115,18 @@ register_app(AppSpec(
         "oryx.input-schema.categorical-features": ["label"],
         "oryx.input-schema.target-feature": "label",
     },
+))
+
+register_app(AppSpec(
+    name="example",
+    batch_update="oryx_tpu_torch.apps.example.batch.ExampleBatchLayerUpdate",
+    speed_manager="oryx_tpu_torch.apps.example.speed.ExampleSpeedModelManager",
+    serving_manager="oryx_tpu_torch.apps.example.serving.ExampleServingModelManager",
+    serving_resources=(
+        "oryx_tpu_torch.serving.resources.common",
+        "oryx_tpu_torch.serving.resources.example",
+    ),
+    description="wordcount walkthrough app",
 ))
 
 register_app(AppSpec(

@@ -6,9 +6,9 @@ earliest and blocking iteration, behind one URI scheme:
 
     mem://<name>    in-process broker (tests)
     file://<dir>    durable log segments on a shared filesystem, safe for
-                    multi-process producers/consumers (pure-Python appender)
-
-``kafka://`` is not ported yet.
+                    multi-process producers/consumers (the native
+                    appender when liboryxbus.so builds, else pure Python)
+    kafka://h:p,..  a Kafka cluster, over the wire protocol (bus/kafka.py)
 """
 
 from oryx_tpu_torch.bus.api import KeyMessage, TopicProducer, ConsumeDataIterator

@@ -1,5 +1,5 @@
 """Broker interface + URI resolution + topic admin helpers (the port's
-copy of oryx_tpu/bus/broker.py; ``kafka://`` is not ported yet).
+copy of oryx_tpu/bus/broker.py).
 
 The admin surface mirrors the reference's KafkaUtils
 (framework/kafka-util .../kafka/util/KafkaUtils.java:49-140):
@@ -9,6 +9,7 @@ offset store folded into the broker (the ZooKeeper analogue).
 
 from __future__ import annotations
 
+import threading
 import zlib
 from abc import ABC, abstractmethod
 from typing import Mapping
@@ -74,18 +75,26 @@ class Broker(ABC):
         pass
 
 
+_kafka_brokers: dict[str, "Broker"] = {}
+_kafka_lock = threading.Lock()
+
+
 def get_broker(uri: str) -> Broker:
-    """Resolve a broker URI: mem://<name>, file://<dir> / file:/<dir>, or a
-    bare path. kafka:// (a real cluster) is not ported yet and raises."""
+    """Resolve a broker URI: mem://<name>, file://<dir> / file:/<dir>, a
+    bare path, or kafka://host:port[,host:port...] (a real cluster)."""
     if uri.startswith("mem://"):
         from oryx_tpu_torch.bus.inproc import InProcBroker
 
         return InProcBroker.named(uri[len("mem://") :] or "default")
     if uri.startswith("kafka://"):
-        raise ValueError(
-            f"broker URI {uri!r}: kafka:// is not ported yet; use mem:// "
-            "or file://"
-        )
+        from oryx_tpu_torch.bus.kafka import KafkaBroker, parse_bootstrap
+
+        # one client (connection pool) per cluster URI
+        with _kafka_lock:
+            b = _kafka_brokers.get(uri)
+            if b is None:
+                b = _kafka_brokers[uri] = KafkaBroker(parse_bootstrap(uri))
+            return b
     if uri.startswith("file:") or uri.startswith("/") or uri.startswith("."):
         from oryx_tpu_torch.common.ioutil import strip_scheme
         from oryx_tpu_torch.bus.filelog import FileLogBroker

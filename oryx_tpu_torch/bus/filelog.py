@@ -1,6 +1,6 @@
 """Durable file-backed log broker: multi-process pub/sub over a shared
-filesystem (the port's copy of oryx_tpu/bus/filelog.py, with the
-pure-Python appender only: the native C++ appender is not ported yet).
+filesystem (the port's copy of oryx_tpu/bus/filelog.py; the bytes are the
+same, so both packages share a topic).
 
 This is the production data plane standing in for a Kafka cluster on a
 single host / shared filesystem: each topic partition is an append-only
@@ -8,7 +8,7 @@ record log; producers append under an exclusive flock; consumers poll by
 watching the file grow, so separate batch/speed/serving *processes* meet at
 `file://<dir>` exactly like the reference's layers meet at a broker.
 
-Record wire format (the JAX package's, so both packages share a topic):
+Record wire format (shared with the native C++ appender in native/oryxbus):
 
     [i32 key_len | -1 if null][key utf-8][u32 msg_len][msg utf-8]
 
@@ -46,10 +46,11 @@ class _PartitionIndex:
     """Byte positions of each record in one partition log, extended lazily.
     Guarded by its own lock so independent partitions scan concurrently."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, native=None):
         self.path = path
         self.positions: list[int] = []
         self.scanned_to = 0
+        self.native = native
         self.lock = threading.Lock()
 
     def _refresh_locked(self) -> None:
@@ -64,6 +65,11 @@ class _PartitionIndex:
             self.scanned_to = 0
             size = self.path.stat().st_size
         if size <= self.scanned_to:
+            return
+        if self.native is not None:
+            pos_arr, scanned = self.native.scan(str(self.path), self.scanned_to)
+            self.positions.extend(int(p) for p in pos_arr)
+            self.scanned_to = scanned
             return
         with open(self.path, "rb") as f:
             # shared lock: don't scan through a writer's in-flight append or
@@ -124,6 +130,7 @@ class FileLogBroker(Broker):
         # (mtime, meta) per topic: keeps read+parse off the per-send hot
         # path while noticing cross-process recreation via mtime
         self._meta_cache: dict[str, tuple[int, dict]] = {}
+        self._native = _maybe_native()
 
     # -- admin -------------------------------------------------------------
 
@@ -190,7 +197,10 @@ class FileLogBroker(Broker):
             raise ValueError(f"message exceeds max size for {topic}")
         p = partition if partition is not None else partition_for(key, meta["partitions"])
         path = self._topic_dir(topic) / f"p{p}.log"
-        self._append_raw(path, encode_record(key, message))
+        if self._native is not None:
+            self._native.append(str(path), key, message)
+        else:
+            self._append_raw(path, encode_record(key, message))
 
     @staticmethod
     def _append_raw(path: Path, rec: bytes) -> None:
@@ -230,14 +240,18 @@ class FileLogBroker(Broker):
             by_part.setdefault(p, []).append(encode_record(key, message))
         for p, recs in by_part.items():
             path = self._topic_dir(topic) / f"p{p}.log"
-            self._append_raw(path, b"".join(recs))
+            blob = b"".join(recs)
+            if self._native is not None:
+                self._native.append_batch(str(path), blob)
+            else:
+                self._append_raw(path, blob)
 
     def _index(self, topic: str, partition: int) -> _PartitionIndex:
         with self._lock:
             k = (topic, partition)
             if k not in self._indexes:
                 self._indexes[k] = _PartitionIndex(
-                    self._topic_dir(topic) / f"p{partition}.log"
+                    self._topic_dir(topic) / f"p{partition}.log", self._native
                 )
             return self._indexes[k]
 
@@ -281,3 +295,21 @@ class FileLogBroker(Broker):
         except FileNotFoundError:
             return {}
         return {int(k): int(v) for k, v in raw.items()}
+
+
+_NATIVE_CACHE: object | None = None
+_NATIVE_TRIED = False
+
+
+def _maybe_native():
+    """Load the C++ appender (native/oryxbus) if built; else pure Python."""
+    global _NATIVE_CACHE, _NATIVE_TRIED
+    if not _NATIVE_TRIED:
+        _NATIVE_TRIED = True
+        try:
+            from oryx_tpu_torch.bus.native import NativeAppender
+
+            _NATIVE_CACHE = NativeAppender.load()
+        except Exception:
+            _NATIVE_CACHE = None
+    return _NATIVE_CACHE

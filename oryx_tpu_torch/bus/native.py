@@ -2,10 +2,12 @@
 port's copy of oryx_tpu/bus/native.py).
 
 Built from native/oryxbus/oryxbus.cpp (`make` there), at first use when a
-toolchain exists. The port reaches only its CSV data loader
-(``parse_interactions``, through apps/als/common.py); its file log keeps
-the pure-Python appender and scanner (ROADMAP queue 1 item 9), which write
-and read the same bytes. Without the library the Python parser runs.
+toolchain exists. ``NativeParser`` is the CSV data loader
+(``parse_interactions``, through apps/als/common.py); ``NativeAppender``
+adds the file log's appender and record scanner (bus/filelog.py,
+layers/datastore.py), and bus/kafkawire.py takes its hardware CRC-32C.
+Without the library the pure-Python paths run; they write and read the
+same bytes.
 """
 
 from __future__ import annotations
@@ -172,3 +174,72 @@ class NativeParser:
         if n < 0:
             raise OSError(-n, "oryxbus_parse_interactions failed")
         return users[:n], items[:n], vals[:n], tss[:n], ok[:n]
+
+
+class NativeAppender(NativeParser):
+    """The file log's native appender and record scanner, over the same
+    library as the parser (the JAX package's NativeAppender)."""
+
+    _instance: "NativeAppender | None" = None
+
+    def __init__(self, lib: ctypes.CDLL):
+        super().__init__(lib)
+        lib.oryxbus_append.restype = ctypes.c_int
+        lib.oryxbus_append.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_char_p,
+            ctypes.c_int32,
+            ctypes.c_char_p,
+            ctypes.c_uint32,
+        ]
+        lib.oryxbus_append_batch.restype = ctypes.c_int
+        lib.oryxbus_append_batch.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+        lib.oryxbus_scan.restype = ctypes.c_int64
+        lib.oryxbus_scan.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+
+    def append(self, path: str, key: str | None, message: str) -> None:
+        kb = key.encode("utf-8") if key is not None else None
+        mb = message.encode("utf-8")
+        rc = self._lib.oryxbus_append(
+            path.encode(), kb, len(kb) if kb else 0, mb, len(mb)
+        )
+        if rc != 0:
+            raise OSError(-rc, f"oryxbus_append failed for {path}")
+
+    def append_batch(self, path: str, encoded: bytes) -> None:
+        rc = self._lib.oryxbus_append_batch(path.encode(), encoded, len(encoded))
+        if rc != 0:
+            raise OSError(-rc, f"oryxbus_append_batch failed for {path}")
+
+    def scan(self, path: str, start_pos: int, max_records: int | None = None) -> tuple[np.ndarray, int]:
+        """Record byte positions from start_pos + final scanned-to position.
+        The buffer is sized from the unscanned byte span (a record is >= 8
+        bytes) so tail-polling a busy log doesn't allocate megabytes per
+        refresh; loops if the file grew beyond the estimate mid-scan."""
+        positions: list[int] = []
+        pos = start_pos
+        while True:
+            if max_records is None:
+                try:
+                    span = max(0, os.stat(path).st_size - pos)
+                except OSError:
+                    span = 0
+                cap = max(16, span // 8 + 1)
+            else:
+                cap = max_records
+            buf = (ctypes.c_int64 * cap)()
+            scanned = ctypes.c_int64(pos)
+            n = self._lib.oryxbus_scan(path.encode(), pos, buf, cap, ctypes.byref(scanned))
+            if n < 0:
+                raise OSError(-n, f"oryxbus_scan failed for {path}")
+            positions.extend(buf[:n])
+            pos = scanned.value
+            if max_records is not None or n < cap:
+                break
+        return np.asarray(positions, dtype=np.int64), pos

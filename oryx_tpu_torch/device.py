@@ -3,7 +3,8 @@
 The default is the CUDA card. Without one, resolution raises: no code path
 moves to the CPU on its own. The CPU is used only when the caller names it
 (``device="cpu"``), which is how the tests run the plain versions of the
-kernels.
+kernels, or when the operator does: the CLI applies
+``oryx.compute.platform`` (``set_platform``) as the process's default.
 
 The port runs in one process on one card: a config that asks for a
 multi-process pod raises (``reject_pod_config``).
@@ -14,10 +15,34 @@ from __future__ import annotations
 import torch
 
 
+_platform: torch.device | None = None  # set_platform's choice; None = the card
+
+
+def set_platform(name: str | None) -> None:
+    """Make ``name`` (``oryx.compute.platform``) the device that
+    ``resolve_device()`` returns when the caller names none: "auto" (or
+    None) is the CUDA card, any other value a torch device ("cpu",
+    "cuda:1"). Raises ValueError on a name torch does not know."""
+    global _platform
+    if name in (None, "", "auto"):
+        _platform = None
+        return
+    try:
+        _platform = torch.device(name)
+    except RuntimeError as e:
+        raise ValueError(
+            f"oryx.compute.platform = {name!r} names no torch device "
+            "(auto, cpu or cuda[:N])"
+        ) from e
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``torch.device("cuda")`` by default, else the device the caller
-    named. Raises RuntimeError when CUDA is asked for (or implied) and no
-    card is present."""
+    """``torch.device("cuda")`` by default (or the operator's
+    ``set_platform`` choice), else the device the caller named. Raises
+    RuntimeError when CUDA is asked for (or implied) and no card is
+    present."""
+    if device is None:
+        device = _platform
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -8,10 +8,8 @@ under dataDir/oryx-<timestamp>/ (SaveToHDFSFunction, skipping empty RDDs,
 BatchLayer.java:122-130) and re-reads ALL past data each generation with a
 glob (BatchUpdateFunction.java:103-130); TTL cleanup deletes aged dirs
 (DeleteOldDataFn). Here each generation is one record-log file using the
-bus wire format under <data-dir>/oryx-<timestamp>/data.log. The port writes
-and scans it with the file log's pure-Python codec (the JAX package routes
-it through the native appender when that is built; ROADMAP queue 1 item
-9); the bytes are the same.
+bus wire format — so the native appender/scanner accelerate it too — under
+<data-dir>/oryx-<timestamp>/data.log.
 
 History reads stream in bounded chunks (iter_all_data) so the from-scratch
 rebuild path never materializes the whole log in one read call, and the
@@ -30,7 +28,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from oryx_tpu_torch.bus.api import KeyMessage
-from oryx_tpu_torch.bus.filelog import _PartitionIndex, encode_record
+from oryx_tpu_torch.bus.filelog import _PartitionIndex, encode_record, _maybe_native
 from oryx_tpu_torch.common import faults
 from oryx_tpu_torch.common.retry import retry_call
 from oryx_tpu_torch.common.ioutil import (
@@ -64,26 +62,31 @@ def save_generation(data_dir: str, timestamp_ms: int, records: Sequence[KeyMessa
     d = mkdirs(Path(strip_scheme(data_dir)) / f"oryx-{timestamp_ms}")
     path = d / _DATA_FILE
     blob = b"".join(encode_record(km.key, km.message) for km in records)
+    native = _maybe_native()
 
     def _do() -> None:
         faults.fire("datastore.save_window")
-        # single unbuffered append: a crash mid-write leaves a torn TAIL,
-        # which the record scanner stops at (filelog _PartitionIndex) —
-        # never a mid-log hole. A retried attempt after a torn write would
-        # double-append, so roll back to the pre-append size first.
-        pre = path.stat().st_size if path.exists() else 0
-        fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
-        try:
+        if native is not None:
+            native.append_batch(str(path), blob)
+        else:
+            # single unbuffered append: a crash mid-write leaves a torn
+            # TAIL, which the record scanner stops at (filelog
+            # _PartitionIndex) — never a mid-log hole. A retried attempt
+            # after a torn write would double-append, so roll back to the
+            # pre-append size first.
+            pre = path.stat().st_size if path.exists() else 0
+            fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
             try:
-                wrote = os.write(fd, blob)
-            except OSError:
-                os.ftruncate(fd, pre)
-                raise
-            if wrote != len(blob):
-                os.ftruncate(fd, pre)
-                raise OSError(f"short append to {path}")
-        finally:
-            os.close(fd)
+                try:
+                    wrote = os.write(fd, blob)
+                except OSError:
+                    os.ftruncate(fd, pre)
+                    raise
+                if wrote != len(blob):
+                    os.ftruncate(fd, pre)
+                    raise OSError(f"short append to {path}")
+            finally:
+                os.close(fd)
 
     retry_call("datastore.save", _do)
     return d
@@ -99,7 +102,7 @@ def iter_all_data(
         path = gen_dir / _DATA_FILE
         if not path.exists():
             continue
-        idx = _PartitionIndex(path)
+        idx = _PartitionIndex(path, _maybe_native())
         offset = 0
         while True:
             recs = idx.read(offset, chunk_records)

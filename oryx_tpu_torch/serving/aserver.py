@@ -16,9 +16,11 @@ Multi-loop fan-out (``oryx.serving.api.loops``): the frontend runs N
 acceptor/event-loop threads, EACH with its own ``SO_REUSEPORT`` listener
 socket on the same port — the kernel balances connections across them —
 but all sharing ONE ServingApp, ONE model manager, ONE worker pool, and
-the ONE process-wide TopKBatcher, so concurrent requests from every loop
-coalesce into the SAME device dispatches: bigger batches, one model
-copy. Each loop's state
+the ONE process-wide TopKBatcher. Unlike the full-replica mode
+(``oryx.serving.api.processes``), which runs whole processes and
+duplicates the factor matrices on the card per replica, concurrent
+requests from every loop coalesce into the SAME device dispatches:
+bigger batches, one model copy. Each loop's state
 (connection registry, request counter) is touched only by its own
 thread, so the loops share nothing mutable but the app itself.
 
@@ -150,12 +152,14 @@ class AsyncHTTPServer:
         ssl_context: ssl.SSLContext | None = None,
         workers: int = 128,
         loops: int = 1,
+        reuse_port: bool = False,
     ):
         self.app = app
         self.auth = auth
         self.port = port
         self._ssl = ssl_context
         self.loops = max(1, loops)
+        self._reuse_port = reuse_port
         self._pool = ThreadPoolExecutor(
             max_workers=workers, thread_name_prefix="oryx-serving-worker"
         )
@@ -190,7 +194,7 @@ class AsyncHTTPServer:
                 "SO_REUSEPORT; running a single event loop", n,
             )
             n = 1
-        self._want_reuse = n > 1
+        self._want_reuse = self._reuse_port or n > 1
 
         # loop 0 binds first and resolves an ephemeral port; the remaining
         # loops then join that CONCRETE port with SO_REUSEPORT
@@ -325,8 +329,9 @@ class AsyncHTTPServer:
                     self.port,
                     ssl=self._ssl,
                     backlog=1024,
-                    # one listener per loop on the same port; the kernel
-                    # load-balances connections across them
+                    # one listener per loop (and/or per replica process)
+                    # on the same port; the kernel load-balances
+                    # connections across them
                     reuse_port=self._want_reuse or None,
                 )
             )

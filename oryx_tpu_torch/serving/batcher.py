@@ -320,6 +320,18 @@ class TopKBatcher:
              lambda: float(self._peak_flops or 0.0)),
         ):
             reg.gauge(name, help_text).set_function(fn)
+        # the kernels' own launch counts (ops/topk.py bumps them where it
+        # launches), so a process that serves on the card shows it did
+        launches = reg.counter(
+            "oryx_cuda_kernel_launches_total",
+            "launches of the hand-written top-k kernels in this process, "
+            "by kernel and the type of its items", labeled=True)
+        for t in topk.PARTIAL_LAUNCHES_BY_TYPE:
+            launches.set_function(
+                lambda t=t: float(topk.PARTIAL_LAUNCHES_BY_TYPE[t]),
+                kernel="topk_dot_partial", type=t)
+        launches.set_function(lambda: float(topk.LAUNCHES["topk_merge"]),
+                              kernel="topk_merge", type="float32")
 
     def _peak_for_matrix(self, y) -> float | None:
         """The card's dense peak at the type this dispatch streams (int8

@@ -51,13 +51,6 @@ class ServingLayer:
         self.input_uri = config.get_string("oryx.input-topic.broker")
         self.input_topic = config.get_string("oryx.input-topic.message.topic")
 
-        processes = config.get_int("oryx.serving.api.processes", 1)
-        if processes > 1:
-            raise ValueError(
-                f"oryx.serving.api.processes = {processes}: serving replicas "
-                "sharing one port are not ported yet; run one process (the "
-                "async frontend's event loops share one model on the card)"
-            )
         if model_manager is not None:
             self.model_manager = model_manager
         else:
@@ -242,7 +235,9 @@ class ServingLayer:
             from oryx_tpu_torch.serving.aserver import AsyncHTTPServer
 
             # event-loop fan-out: 0 = auto (one loop per CPU core). All
-            # loops share THIS app/model/batcher.
+            # loops share THIS app/model/batcher — the in-process
+            # alternative to `processes`, which duplicates model state
+            # (and the card's view of it) per replica.
             loops = self.config.get_int("oryx.serving.api.loops", 0)
             if loops <= 0:
                 import os
@@ -255,12 +250,26 @@ class ServingLayer:
                 ssl_context=ctx,
                 workers=self.config.get_int("oryx.serving.api.workers", 128),
                 loops=loops,
+                reuse_port=self.config.get_int("oryx.serving.api.processes", 1) > 1,
             )
             self._aio_server.start()
             self.port = self._aio_server.port
         else:
             handler = _make_handler(self.app, auth)
-            self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port), handler)
+            if self.config.get_int("oryx.serving.api.processes", 1) > 1:
+                # replica mode shares the port across processes
+                import socket
+
+                class _ReusePortServer(ThreadingHTTPServer):
+                    def server_bind(self):
+                        self.socket.setsockopt(
+                            socket.SOL_SOCKET, socket.SO_REUSEPORT, 1
+                        )
+                        super().server_bind()
+
+                self._httpd = _ReusePortServer(("0.0.0.0", self.port), handler)
+            else:
+                self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port), handler)
             if ctx is not None:
                 # defer the handshake to the per-connection handler thread —
                 # with the default handshake-on-accept, one client that opens

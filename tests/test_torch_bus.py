@@ -125,9 +125,17 @@ def test_file_topic_is_shared_across_packages(writer, reader, tmp_path):
 
 
 def test_port_refuses_kafka():
+    """The port resolves kafka:// to its own client (one per cluster URI,
+    no connection made until first use) and refuses a kafka:// URI it
+    cannot parse."""
     broker = mod("oryx_tpu_torch", "bus.broker")
-    with pytest.raises(ValueError, match="kafka:// is not ported"):
-        broker.get_broker("kafka://localhost:9092")
+    kafka = mod("oryx_tpu_torch", "bus.kafka")
+    b = broker.get_broker("kafka://localhost:9092,localhost:9093")
+    assert isinstance(b, kafka.KafkaBroker)
+    assert b._bootstrap == [("localhost", 9092), ("localhost", 9093)]
+    assert broker.get_broker("kafka://localhost:9092,localhost:9093") is b
+    with pytest.raises(ValueError):
+        broker.get_broker("kafka://localhost:not-a-port")
 
 
 def test_oversized_message_is_refused(pkg, tmp_path):

@@ -65,6 +65,7 @@ def test_every_port_module_imports_with_jax_blocked():
     } <= names
     assert set(KMEANS_RDF_MODULES) <= names
     assert set(SEQ_MODULES) <= names
+    assert set(BUS_CLI_MODULES) <= names
 
 
 # the k-means and RDF apps' modules and what they share
@@ -234,7 +235,9 @@ def test_spi_overlay_loads_port_classes_only():
 def test_serving_layer_and_cli_raise_without_cuda(monkeypatch):
     """Built from config, the serving layer loads the ALS manager by name,
     which resolves the card and raises without one, before any socket or
-    thread is opened; so does the CLI."""
+    thread is opened; so does the CLI, and so does each serving replica
+    (``oryx.serving.api.processes = 2``): every replica opens the card
+    itself, none falls back to the CPU."""
     from oryx_tpu_torch import cli
     from oryx_tpu_torch.apps.spi import app_overlay
     from oryx_tpu_torch.common.config import load_config
@@ -245,7 +248,11 @@ def test_serving_layer_and_cli_raise_without_cuda(monkeypatch):
         ServingLayer(load_config(overlay=app_overlay("als")))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serving", "--app", "als"])
-    with pytest.raises(ValueError, match="not ported"):
+    replicas = dict(app_overlay("als"), **{"oryx.serving.api.processes": 2})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingLayer(load_config(overlay=replicas))
+    monkeypatch.setenv("ORYX_SERVING_REPLICA", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serving", "--app", "als", "--set",
                   "oryx.serving.api.processes=2"])
 
@@ -270,6 +277,56 @@ def test_batch_and_speed_layers_and_cli_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="item 11"):
         cli.main(["batch", "--app", "als", "--set",
                   "oryx.compute.distributed.num-processes=2"])
+
+
+# the Kafka bus, the native tier, the CLI and the example app
+BUS_CLI_MODULES = (
+    "oryx_tpu_torch.bus.kafkawire", "oryx_tpu_torch.bus.compress",
+    "oryx_tpu_torch.bus.kafka", "oryx_tpu_torch.bus.broker",
+    "oryx_tpu_torch.bus.native", "oryx_tpu_torch.bus.filelog",
+    "oryx_tpu_torch.layers.datastore", "oryx_tpu_torch.common.executil",
+    "oryx_tpu_torch.serving.server", "oryx_tpu_torch.serving.aserver",
+    "oryx_tpu_torch.cli", "oryx_tpu_torch.apps.example",
+    "oryx_tpu_torch.apps.example.batch", "oryx_tpu_torch.apps.example.speed",
+    "oryx_tpu_torch.apps.example.serving",
+    "oryx_tpu_torch.serving.resources.example", "oryx_tpu_torch.apps.spi",
+)
+
+
+def test_bus_and_cli_modules_import_with_jax_blocked():
+    """Each module of the Kafka bus, the native tier, the CLI and the
+    example app, imported alone in a fresh process with jax blocked, loads
+    no module of the JAX package; kafka:// resolves to the port's client,
+    the native appender and the example app are there, and the CLI refuses
+    only fleet and pod."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {BUS_CLI_MODULES!r}:
+            importlib.import_module(name)
+        from oryx_tpu_torch.bus.broker import get_broker
+        from oryx_tpu_torch.bus.kafka import KafkaBroker
+        from oryx_tpu_torch.bus.native import NativeAppender, NativeParser
+        from oryx_tpu_torch.apps.spi import app_overlay
+        from oryx_tpu_torch import cli
+        assert isinstance(get_broker("kafka://127.0.0.1:9"), KafkaBroker)
+        assert issubclass(NativeAppender, NativeParser)
+        assert app_overlay("example")["oryx.batch.update-class"].startswith(
+            "oryx_tpu_torch.apps.example.")
+        assert set(cli._NOT_PORTED) == {{"fleet", "pod"}}
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
 
 
 # the serving planes' modules: the artifact relay, LSH, the rescorer SPI,

@@ -672,7 +672,7 @@ def test_cli_app_overlay_names_the_port_classes(monkeypatch):
     from oryx_tpu_torch import cli
 
     seen = {}
-    monkeypatch.setattr(cli, "cmd_serving", lambda config: seen.setdefault("cfg", config) and 0)
+    monkeypatch.setattr(cli, "cmd_serving", lambda config, *_: seen.setdefault("cfg", config) and 0)
     for app, manager in (("kmeans", "KMeansServingModelManager"),
                          ("rdf", "RDFServingModelManager")):
         seen.clear()

@@ -706,7 +706,7 @@ def test_cli_app_seq_overlays_the_port_classes(command, monkeypatch):
     from oryx_tpu_torch import cli
 
     seen = {}
-    monkeypatch.setattr(cli, f"cmd_{command}", lambda config: seen.setdefault("cfg", config) and 0)
+    monkeypatch.setattr(cli, f"cmd_{command}", lambda config, *_: seen.setdefault("cfg", config) and 0)
     cli.main([command, "--app", "seq"])
     cfg = seen["cfg"]
     assert cfg.get_string("oryx.batch.update-class") == \
