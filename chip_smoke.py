@@ -167,7 +167,8 @@ Phases, each printing JSON lines:
    127.0.0.1 (the input topic at 4 partitions, the update topic at 1 with
    a 16 KiB max message, so the model goes out as MODEL-CHUNKs +
    MODEL-REF): `setup`; `config`, which must name the kafka:// URIs;
-   `input` of phase 6's 1M events (events/s produced); `batch`, its group
+   `input` of phase 6's users and items, its events cut to 250,000
+   (events/s produced); `batch`, its group
    reset to the earliest offset, until its first generation is on the
    topic, then SIGTERM; `serving` with oryx.serving.api.processes = 2 on
    one port in score-mode exact, then quantized: each replica's /ready,
@@ -182,7 +183,25 @@ Phases, each printing JSON lines:
    `tail` across the batch and speed legs (MODEL-REF and UP lines);
    `perf --url` and `loadtest` against the replicas; `flight --kind
    process-start --kind generation` (both replicas' starts and the
-   generation). Then, in-process on the same broker, the wordcount
+   generation). Then the fleet leg (`fleet-burst`, `fleet-kill`,
+   `fleet-canary` and `fleet` lines): phases 3-4's 1M x 50 catalog
+   published as MODEL-CHUNKs + MODEL-REF on a kafka:// topic of the same
+   broker, `cli fleet --replicas 2 --policy hash` with both replicas on
+   the card (each replica's /ready, the front's /fleet/healthz), 2,048
+   exact /recommend through the front (qps, p50/p99, statuses, recall@10
+   1.0 against float64, the split by the front's own count, each
+   replica's bf16 and merge launches from /fleet/metrics), each of 32
+   users sent twice to the replica the ring names, one replica SIGKILLed
+   under traffic (seconds to ejection, readmission and its /ready; no
+   non-shed 5xx); then a quantized fleet with the canary plane on (the
+   gate in hold mode on r1, canary traffic fraction 0.5, the quality
+   sampler at 1.0): a clean generation 2 promoted on both replicas, a
+   corrupted generation 3 (tools/chaos.py's construction) adopted on the
+   canary only and rolled back as a pointer swap (the replicas'
+   oryx_fleet_distribution_bytes unchanged), the flight rings reading
+   canary-start, quality-alarm, canary-rollback in order, no non-shed
+   5xx. The fleet's launches count toward the kernels line. Then,
+   in-process on the same broker, the wordcount
    example app over 10,000 lines (/distinct against a plain count) and
    `import-pmml` of a 100 x 20 k-means PMML served on the card (256
    /assign against the float64 nearest center). The line names the
@@ -681,37 +700,44 @@ def set_sample_rate(config, rate: float) -> None:
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
 
-def write_model(np, root: Path) -> tuple[str, dict]:
+def model_artifact(np, items=N_ITEMS, users=N_USERS, features=FEATURES):
+    """The serving catalog: a seeded N(0,1) ALS model, each user with
+    KNOWN_PER_USER known items. (artifact, {"x", "y", "known_idx"})."""
     from oryx_tpu_torch.common.artifact import ModelArtifact
 
     rng = np.random.default_rng(SEED)
-    y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
-    x = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
-    known_idx = rng.integers(0, N_ITEMS, size=(N_USERS, KNOWN_PER_USER))
-    x_ids = [f"u{j}" for j in range(N_USERS)]
-    y_ids = [f"i{j}" for j in range(N_ITEMS)]
+    y = rng.standard_normal((items, features), dtype=np.float32)
+    x = rng.standard_normal((users, features), dtype=np.float32)
+    known_idx = rng.integers(0, items, size=(users, KNOWN_PER_USER))
+    x_ids = [f"u{j}" for j in range(users)]
+    y_ids = [f"i{j}" for j in range(items)]
     known = {u: [f"i{int(j)}" for j in row] for u, row in zip(x_ids, known_idx)}
     art = ModelArtifact("als", content={"knownItems": known},
                         tensors={"X": x, "Y": y})
-    art.set_extension("features", str(FEATURES))
+    art.set_extension("features", str(features))
     art.set_extension("implicit", "true")
     art.set_extension("XIDs", x_ids)
     art.set_extension("YIDs", y_ids)
+    return art, {"x": x, "y": y, "known_idx": known_idx}
+
+
+def write_model(np, root: Path) -> tuple[str, dict]:
+    art, data = model_artifact(np)
     path = root / "model"
     art.write(path)
-    return str(path), {"x": x, "y": y, "known_idx": known_idx}
+    return str(path), data
 
 
-def exact_top(torch, np, model_data, users) -> list:
+def exact_top(torch, np, model_data, users, device="cuda") -> list:
     """Exact float64 top-HOW_MANY item rows per user, known items excluded
     (torch.matmul in float64 on the card, independent of the kernels)."""
-    y64 = torch.from_numpy(model_data["y"]).cuda().double()
+    y64 = torch.from_numpy(model_data["y"]).to(device).double()
     out = []
     for lo in range(0, len(users), 256):
         sel = users[lo:lo + 256]
-        x64 = torch.from_numpy(model_data["x"][sel]).cuda().double()
+        x64 = torch.from_numpy(model_data["x"][sel]).to(device).double()
         s = x64 @ y64.T
-        known = torch.from_numpy(model_data["known_idx"][sel]).cuda()
+        known = torch.from_numpy(model_data["known_idx"][sel]).to(device)
         s.scatter_(1, known, float("-inf"))
         out.extend(torch.topk(s, HOW_MANY, dim=1).indices.cpu().numpy())
     del y64
@@ -2087,6 +2113,9 @@ def lambda_phase(torch, np, T, root: Path, device="cuda",
 # ---------------------------------------------------------------------------
 
 KAFKA_MAX_MESSAGE = 16 << 10  # the update topic's: the model goes out chunked
+# phase 6's users and items, its events cut from 1M to 250,000 to make room
+# for the fleet leg
+KAFKA_SHAPE = (6_000, 3_700, 250_000)
 KAFKA_PARTITIONS = {"input": 4, "update": 1}  # the reference's
 KAFKA_REPLICAS = 2
 KAFKA_BATCH_INTERVAL_S = 5  # the first generation starts this long after batch
@@ -2237,10 +2266,506 @@ def plain_wordcount(lines: list) -> dict:
     return {w: len(o) for w, o in others.items() if o}
 
 
-def kafka_phase(np, root: Path, device="cuda", shape=SMALL_SHAPE,
+# -- phase 10's fleet leg: `cli fleet` over card replicas at 1M x 50 ---------
+
+FLEET_REPLICAS = 2
+FLEET_PROBE_S = 0.5  # the front's /healthz probe interval in this leg
+FLEET_CLIENTS = 2  # in-process client threads behind the kill and canary legs
+FLEET_CANARY = {  # the canary leg's replica and controller settings
+    "oryx.serving.api.score-mode": "quantized",
+    "oryx.fleet.canary.enabled": True,
+    "oryx.fleet.canary.traffic-fraction": 0.5,
+    "oryx.fleet.canary.min-samples": 8,
+    # the verdict must be the quality gate's: a replica's first requests
+    # after a generation swap are slow and must not trip the latency leg
+    "oryx.fleet.canary.max-latency-burn": 1e9,
+    "oryx.fleet.canary.hold-timeout-sec": 240,
+    "oryx.monitoring.quality.sample-rate": 1.0,
+    "oryx.monitoring.quality.window-sec": 60,
+    "oryx.monitoring.quality.alarm-burn-rate": 5,
+    "oryx.monitoring.slo.quality.objective": 0.95,
+    "oryx.monitoring.slo.quality.recall-floor": 0.9,
+    "oryx.monitoring.slo.fast-window-sec": 60,
+}
+FLEET_LIMIT_S = 300  # any one wait of the leg
+
+
+def canary_artifact(np, gen: int, items: int, users: int, features: int,
+                    corrupted: bool):
+    """A generation of the canary leg, built as tools/chaos.py's
+    degraded-model generations are: X[:, 0] = 0, and Y[:, 0] = 0 (clean)
+    or +-1000 (corrupted: the huge coordinate sets every row's int8 scale,
+    so the quantized scan sees ties while the exact scores are untouched)."""
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+
+    rng = np.random.default_rng(gen)
+    x = rng.standard_normal((users, features), dtype=np.float32)
+    x[:, 0] = 0.0
+    y = rng.standard_normal((items, features), dtype=np.float32)
+    y[:, 0] = (1000.0 * rng.choice(np.array([-1.0, 1.0], np.float32), size=items)
+               if corrupted else 0.0)
+    art = ModelArtifact("als", tensors={"X": x, "Y": y})
+    art.set_extension("features", str(features))
+    art.set_extension("implicit", "true")
+    art.set_extension("XIDs", [f"u{j}" for j in range(users)])
+    art.set_extension("YIDs", [f"i{j}" for j in range(items)])
+    return art
+
+
+def write_fleet_generation(gen: int, items: int, users: int, features: int,
+                           path: str) -> None:
+    """The serialized artifact of one generation of the fleet leg, to
+    ``path`` (run in a process of its own, so the three serialize at once),
+    with the batch layer's own serializer."""
+    import numpy as np
+
+    art = (model_artifact(np, items, users, features)[0] if gen == 1 else
+           canary_artifact(np, gen, items, users, features, corrupted=gen == 3))
+    Path(path).write_text(art.to_string())
+
+
+FLEET_WRITER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.write_fleet_generation(*map(int, sys.argv[2:6]), sys.argv[6])
+"""
+
+
+class FleetTraffic:
+    """Client threads sending GET /recommend through the front on
+    keep-alive connections, counting answers: 200, a shed (503 with
+    Retry-After), any other 5xx, anything else, and transport errors."""
+
+    def __init__(self, port: int, paths: list, threads: int = FLEET_CLIENTS):
+        self.port, self.paths = port, paths
+        self.counts = {"ok": 0, "shed": 0, "non_shed_5xx": 0, "other": 0,
+                       "client_error": 0}
+        self.lock = threading.Lock()
+        self.go = threading.Event()
+        self.stopped = threading.Event()
+        self.busy = 0
+        self.threads = [threading.Thread(target=self._run, args=(w, threads),
+                                         daemon=True) for w in range(threads)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, w: int, n: int) -> None:
+        import http.client
+
+        conn, j = None, w
+        while not self.stopped.is_set():
+            if not self.go.wait(0.05):
+                continue
+            with self.lock:
+                self.busy += 1
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                                      timeout=120)
+                conn.request("GET", self.paths[j % len(self.paths)],
+                             headers={"Accept": "application/json"})
+                r = conn.getresponse()
+                shed = r.getheader("Retry-After") is not None
+                r.read()
+                key = ("ok" if r.status == 200 else
+                       "shed" if r.status == 503 and shed else
+                       "non_shed_5xx" if r.status >= 500 else "other")
+            except (OSError, http.client.HTTPException):
+                key = "client_error"
+                if conn is not None:
+                    conn.close()
+                conn = None
+            with self.lock:
+                self.counts[key] += 1
+                self.busy -= 1
+            j += n
+
+    def pause(self) -> None:
+        """Stop sending; return once no request is in flight."""
+        self.go.clear()
+        while True:
+            with self.lock:
+                if self.busy == 0:
+                    return
+            time.sleep(0.01)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return dict(self.counts)
+
+    def close(self) -> dict:
+        self.pause()
+        self.stopped.set()
+        for t in self.threads:
+            t.join(timeout=30)
+        return self.snapshot()
+
+
+def fleet_metrics(port: int) -> dict:
+    """{replica: {"launches", "by_type", "dist_bytes"}} from the front's
+    federated /fleet/metrics (every routable replica's /metrics with a
+    replica label)."""
+    import re
+
+    status, body = http_get(port, "/fleet/metrics")
+    check(status == 200, f"/fleet/metrics answered {status}")
+    out: dict = {}
+    sample = re.compile(r"^(\w+)\{([^}]*)\} (\S+)")
+    for line in body.decode().splitlines():
+        m = sample.match(line)
+        if m is None:
+            continue
+        name, labels = m.group(1), dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+        rep = out.setdefault(labels.get("replica"), {
+            "launches": {"topk_dot_partial": 0, "topk_merge": 0},
+            "by_type": {"float32": 0, "bfloat16": 0, "int8": 0},
+            "dist_bytes": 0.0})
+        if name == "oryx_cuda_kernel_launches_total":
+            rep["launches"][labels["kernel"]] += int(float(m.group(3)))
+            if labels["kernel"] == "topk_dot_partial":
+                rep["by_type"][labels["type"]] += int(float(m.group(3)))
+        elif name == "oryx_fleet_distribution_bytes":
+            rep["dist_bytes"] += float(m.group(3))
+    return out
+
+
+def front_answers(port: int) -> dict:
+    """The front's oryx_fleet_front_requests_total by replica that answered
+    (its own /metrics)."""
+    import re
+
+    _, body = http_get(port, "/metrics")
+    pat = re.compile(r'oryx_fleet_front_requests_total\{replica="([^"]*)"\} (\S+)')
+    return {r: float(v) for r, v in pat.findall(body.decode())}
+
+
+def fleet_status(port: int) -> dict:
+    status, body = http_get(port, "/fleet/status")
+    check(status == 200, f"/fleet/status answered {status}")
+    return {r["id"]: r for r in json.loads(body)["replicas"]}
+
+
+def wait_for(what: str, pred, alive, limit_s: float = FLEET_LIMIT_S,
+             every: float = 0.05) -> float:
+    """Poll ``pred`` until true; the seconds it took. Fails past the limit
+    or when a process of the phase died."""
+    t0 = time.monotonic()
+    while True:
+        alive(what)
+        if pred():
+            return time.monotonic() - t0
+        check(time.monotonic() - t0 < limit_s, f"{what}: not within {limit_s} s")
+        time.sleep(every)
+
+
+def replica_pid(fleet_pid: int, rid: str) -> int:
+    """The pid of the fleet's replica ``rid`` (its command line names it)."""
+    kids = subprocess.run(["pgrep", "-P", str(fleet_pid)], capture_output=True,
+                          text=True).stdout.split()
+    for pid in kids:
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if f"oryx.fleet.replica.id={rid}".encode() in cmd:
+            return int(pid)
+    raise AssertionError(f"no process of replica {rid} under {fleet_pid}: {kids}")
+
+
+def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
+              device="cuda", shape=(N_ITEMS, N_USERS, FEATURES),
+              burst=N_REQUESTS) -> dict:
+    """`python -m oryx_tpu_torch.cli fleet --replicas 2 --policy hash` on the
+    card at the serving catalog's width, its model published as MODEL-CHUNKs
+    + MODEL-REF on a kafka:// topic of phase 10's broker: a timed exact
+    burst through the front, hash stickiness, a replica SIGKILLed under
+    traffic; then a second fleet in quantized mode with the canary plane
+    on: a clean generation promoted, a corrupted one rolled back. The
+    caller (kafka_phase) stops the processes it started on failure."""
+    from oryx_tpu_torch.bus.broker import topics
+    from oryx_tpu_torch.common.artifact import publish_model_ref
+    from oryx_tpu_torch.common.executil import free_port_run
+    from oryx_tpu_torch.common.flightrec import read_events
+    from oryx_tpu_torch.common.freshness import publish_stamp
+    from oryx_tpu_torch.fleet.ring import HashRing
+
+    cuda = device == "cuda"
+    items, users, features = shape
+    repo = Path(__file__).resolve().parent
+    t_leg = time.monotonic()
+    out: dict = {"phase": "fleet", "replicas": FLEET_REPLICAS, "policy": "hash",
+                 "shape": {"items": items, "users": users, "features": features},
+                 "probe_interval_s": FLEET_PROBE_S}
+
+    # the three generations, serialized by three processes at once
+    t0 = time.monotonic()
+    gen_files = {g: root / f"fleet-gen-{g}.json" for g in (1, 2, 3)}
+    writers = [subprocess.Popen(
+        [sys.executable, "-c", FLEET_WRITER, str(repo), str(g), str(items),
+         str(users), str(features), str(f)]) for g, f in gen_files.items()]
+    _, data = model_artifact(np, items, users, features)
+    probe = np.random.default_rng(SEED + 2).choice(users, size=burst, replace=False)
+    ref_rows = exact_top(torch, np, data, probe, device=device)
+    ref = [{f"i{int(j)}" for j in row} for row in ref_rows]
+    paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in probe]
+    for w in writers:
+        check(w.wait(timeout=FLEET_LIMIT_S) == 0, "a fleet generation writer failed")
+    out["serialize_s"] = time.monotonic() - t0
+    out["artifact_mb"] = gen_files[1].stat().st_size / 1e6
+
+    for t in ("FleetInput", "FleetUpdate"):
+        topics.maybe_create(srv.uri, t, 1)
+    max_message = 16 << 20  # the update topic's default max message size
+
+    class _Producer:
+        def send(self, key, message):
+            broker.send("FleetUpdate", key, message)
+
+    def publish(gen: int) -> float:
+        """MODEL-CHUNKs + MODEL-REF of generation ``gen`` (its path never
+        exists here: the replicas resolve it from the artifact relay), then
+        its stamp; the seconds the publish took."""
+        serialized = gen_files[gen].read_text()
+        t = time.monotonic()
+        publish_model_ref(_Producer(), serialized,
+                          str(root / "fleet-models" / f"gen-{gen}"), max_message)
+        broker.send("FleetUpdate", "TRACE", publish_stamp(generation=gen))
+        return time.monotonic() - t
+
+    out["publish_s"] = {1: publish(1)}
+    front_port = free_port_run(1)
+    base_port = free_port_run(FLEET_REPLICAS)
+
+    def fleet_conf(name: str, extra: dict) -> Path:
+        conf = root / f"{name}.conf"
+        conf.write_text("\n".join(f"{k} = {json.dumps(v)}" for k, v in {
+            "oryx.id": "smoke-fleet",
+            "oryx.input-topic.broker": srv.uri, "oryx.update-topic.broker": srv.uri,
+            "oryx.input-topic.message.topic": "FleetInput",
+            "oryx.update-topic.message.topic": "FleetUpdate",
+            "oryx.serving.api.read-only": True,
+            "oryx.serving.min-model-load-fraction": 1.0,
+            "oryx.fleet.base-port": base_port,
+            "oryx.fleet.data-dir": str(root / name),
+            "oryx.fleet.front.probe-interval-sec": FLEET_PROBE_S,
+            "oryx.monitoring.flight.dir": str(root / name / "front-flight"),
+            "oryx.compute.platform": "auto" if cuda else "cpu",
+            **extra,
+        }.items()) + "\n")
+        return conf
+
+    def start_fleet(name: str, extra: dict) -> tuple:
+        """Start `cli fleet`; (process, {replica: seconds to /ready},
+        seconds to /fleet/healthz 200)."""
+        before = compute_apps() if cuda else []
+        t0 = time.monotonic()
+        p = start(name, "fleet", "--app", "als", "--conf",
+                  str(fleet_conf(name, extra)), "--replicas", str(FLEET_REPLICAS),
+                  "--policy", "hash", "--front-port", str(front_port))
+        front_s = wait_for(f"{name}: /fleet/healthz",
+                           lambda: _status(front_port, "/fleet/healthz") == 200, alive)
+        ready = {}
+        for i in range(FLEET_REPLICAS):
+            wait_for(f"{name}: r{i} /ready",
+                     lambda: _status(base_port + i, "/ready") == 200, alive)
+            ready[f"r{i}"] = time.monotonic() - t0
+        if cuda:
+            after = compute_apps()
+            check(len(after) - len(before) >= FLEET_REPLICAS,
+                  f"{name}: replicas not on the card: {before} -> {after}")
+        return p, ready, front_s
+
+    # 1. the exact fleet: start, timed burst, stickiness, kill
+    p, ready, front_s = start_fleet("fleet-exact", {})
+    line = {"ready_s": ready, "front_healthz_s": front_s}
+    answered0 = front_answers(front_port)
+    rows = http_burst(front_port, paths)
+    answered = front_answers(front_port)
+    lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+    wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+    statuses = {}
+    for r in rows:
+        statuses[r[1]] = statuses.get(r[1], 0) + 1
+    hits = sum(len(ref[r[0]] & set(r[4])) for r in rows)
+    split = {k: answered.get(k, 0.0) - answered0.get(k, 0.0)
+             for k in sorted(set(answered) | set(answered0))}
+    fm = fleet_metrics(front_port)
+    line.update({
+        "requests": len(rows), "connections": CLIENT_PROCS * CLIENT_CONNS,
+        "qps": len(rows) / wall, "p50_ms": quantile(lat, 0.5),
+        "p99_ms": quantile(lat, 0.99), "statuses": statuses,
+        "recall_at_10": hits / (HOW_MANY * len(rows)),
+        "split_by_replica": split,
+        "launches_by_replica": {k: v["launches"] for k, v in fm.items()},
+        "bf16_by_replica": {k: v["by_type"]["bfloat16"] for k, v in fm.items()},
+    })
+    out["exact"] = line
+    emit({"phase": "fleet-burst", **line})
+    check(statuses == {200: len(rows)}, f"fleet burst statuses {statuses}")
+    check(line["recall_at_10"] == 1.0, f"fleet recall@10 {line['recall_at_10']}")
+    check(all(split.get(f"r{i}", 0) > 0 for i in range(FLEET_REPLICAS))
+          and split.get("none", 0) == 0, f"fleet split {split}")
+    if cuda:
+        check(all(fm.get(f"r{i}", {}).get("by_type", {}).get("bfloat16", 0) > 0
+                  and fm[f"r{i}"]["launches"]["topk_merge"] > 0
+                  for i in range(FLEET_REPLICAS)),
+              f"a replica launched no bf16 or merge kernel: {fm}")
+    exact_fm = fm
+
+    # hash stickiness: each user, sent twice, answered twice by the
+    # replica the ring names (the front's own count says which)
+    ring = HashRing([f"r{i}" for i in range(FLEET_REPLICAS)])
+    sticky = {}
+    for u in [f"u{int(v)}" for v in probe[:32]]:
+        a0 = front_answers(front_port)
+        for _ in range(2):
+            check(http_get(front_port, f"/recommend/{u}?howMany={HOW_MANY}")[0]
+                  == 200, f"/recommend/{u} through the front")
+        a1 = front_answers(front_port)
+        moved = {k: a1[k] - a0.get(k, 0.0) for k in a1 if a1[k] != a0.get(k, 0.0)}
+        check(moved == {ring.lookup(u): 2.0}, f"{u} answered by {moved}")
+        sticky[ring.lookup(u)] = sticky.get(ring.lookup(u), 0) + 1
+    line["sticky_users_by_replica"] = sticky
+
+    # a replica SIGKILLed under traffic: ejected, restarted, readmitted
+    traffic = FleetTraffic(front_port, paths)
+    traffic.go.set()
+    time.sleep(1.0)
+    victim = f"r{FLEET_REPLICAS - 1}"
+    os.kill(replica_pid(p.pid, victim), signal.SIGKILL)
+    t_kill = time.monotonic()
+    eject_s = wait_for("the killed replica's ejection",
+                       lambda: not fleet_status(front_port)[victim]["routable"],
+                       alive, every=0.02)
+    readmit_s = eject_s + wait_for(
+        "the restarted replica's readmission",
+        lambda: fleet_status(front_port)[victim]["routable"], alive, every=0.02)
+    wait_for("the restarted replica's /ready",
+             lambda: _status(base_port + FLEET_REPLICAS - 1, "/ready") == 200, alive)
+    ready_again_s = time.monotonic() - t_kill
+    time.sleep(1.0)
+    counts = traffic.close()
+    line["kill"] = {"replica": victim, "eject_s": eject_s, "readmit_s": readmit_s,
+                    "ready_again_s": ready_again_s, "answers": counts}
+    emit({"phase": "fleet-kill", **line["kill"]})
+    check(counts["non_shed_5xx"] == 0 and counts["client_error"] == 0
+          and counts["other"] == 0 and counts["ok"] > 0,
+          f"answers through the kill: {counts}")
+    stop("fleet-exact")
+
+    # 2. the canary fleet: r0 adopts first, r1 holds until promoted
+    p, ready, front_s = start_fleet("fleet-canary", FLEET_CANARY)
+    line = {"ready_s": ready, "front_healthz_s": front_s}
+    out["canary"] = line
+    line["arm_s"] = wait_for(
+        "the hold replica armed at generation 1",
+        lambda: (fleet_status(front_port)["r1"]["model_gate"] or {})
+        .get("watermark") == 1, alive)
+    front_flight = root / "fleet-canary" / "front-flight"
+
+    def events(kind: str, ring_dir=front_flight) -> list:
+        return [e for e in read_events(str(ring_dir)) if e.get("kind") == kind]
+
+    def generations() -> dict:
+        return {k: v["model_generation"] for k, v in fleet_status(front_port).items()}
+
+    traffic = FleetTraffic(front_port, paths)
+    traffic.go.set()
+    out["publish_s"][2] = publish(2)
+    line["publish_to_promoted_s"] = wait_for(
+        "generation 2 promoted on both replicas",
+        lambda: generations() == {"r0": 2, "r1": 2}
+        and any(e.get("generation") == 2 for e in events("canary-promote")),
+        alive, every=0.1)
+    traffic.pause()
+
+    # the corrupted generation: adopted on the canary only, refused by
+    # the quality gate, rolled back as a pointer swap
+    out["publish_s"][3] = publish(3)
+    t_pub = time.monotonic()
+    line["publish_to_canary_start_s"] = wait_for(
+        "generation 3's canary split",
+        lambda: any(e.get("generation") == 3 for e in events("canary-start"))
+        and (fleet_status(front_port)["r1"]["model_gate"] or {})
+        .get("pending_generation") == 3, alive, every=0.1)
+    bytes_before = {k: v["dist_bytes"] for k, v in fleet_metrics(front_port).items()}
+    traffic.go.set()
+    wait_for("generation 3 rolled back",
+             lambda: bool(events("canary-rollback"))
+             and generations() == {"r0": 2, "r1": 2}, alive, every=0.1)
+    line["publish_to_rolled_back_s"] = time.monotonic() - t_pub
+    time.sleep(1.0)
+    counts = traffic.close()
+    fm = fleet_metrics(front_port)
+    bytes_after = {k: v["dist_bytes"] for k, v in fm.items()}
+    status = fleet_status(front_port)
+    front_ev = read_events(str(front_flight))
+    canary_ring = read_events(str(root / "fleet-canary" / "r0" / "flight"))
+    starts = [e for e in front_ev if e["kind"] == "canary-start"
+              and e.get("generation") == 3]
+    alarms = [e for e in canary_ring if e["kind"] == "quality-alarm"
+              and e.get("generation") == 3]
+    rollbacks = [e for e in front_ev if e["kind"] == "canary-rollback"]
+    line.update({
+        "answers": counts, "dist_bytes_before_rollback": bytes_before,
+        "dist_bytes_after_rollback": bytes_after,
+        "rollback_event": rollbacks[-1] if rollbacks else None,
+        "story": [(e["kind"], e.get("generation"), e["ts_ms"])
+                  for e in sorted(starts[:1] + alarms[:1] + rollbacks[:1],
+                                  key=lambda e: e["ts_ms"])],
+        "model_gate": {k: v["model_gate"] for k, v in status.items()},
+        "launches_by_replica": {k: v["launches"] for k, v in fm.items()},
+        "int8_by_replica": {k: v["by_type"]["int8"] for k, v in fm.items()},
+    })
+    emit({"phase": "fleet-canary", **line})
+    check(counts["non_shed_5xx"] == 0 and counts["client_error"] == 0
+          and counts["other"] == 0 and counts["ok"] > 0,
+          f"answers through the canary leg: {counts}")
+    check(bytes_after == bytes_before,
+          f"the rollback moved distribution bytes: {bytes_before} -> {bytes_after}")
+    check(len(rollbacks) == 1 and rollbacks[0].get("generation") == 3
+          and rollbacks[0].get("rolled_back_to") == 2
+          and not rollbacks[0].get("quarantined"),
+          f"rollback events {rollbacks}")
+    check(not any(e.get("generation") == 3 for e in front_ev
+                  if e["kind"] == "canary-promote"), "generation 3 promoted")
+    check(starts and alarms and rollbacks
+          and starts[0]["ts_ms"] <= alarms[0]["ts_ms"] <= rollbacks[0]["ts_ms"],
+          f"flight story out of order: {line['story']}")
+    check(3 in (status["r0"]["model_gate"] or {}).get("vetoed", []),
+          f"generation 3 not vetoed on the canary: {status['r0']['model_gate']}")
+    if cuda:
+        check(all(fm.get(f"r{i}", {}).get("by_type", {}).get("int8", 0) > 0
+                  for i in range(FLEET_REPLICAS)),
+              f"a canary-fleet replica launched no int8 kernel: {fm}")
+    stop("fleet-canary")
+    launches = {"topk_dot_partial": 0, "topk_merge": 0}
+    by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
+    for fmr in (exact_fm, fm):
+        for v in fmr.values():
+            for k in launches:
+                launches[k] += v["launches"][k]
+            for k in by_type:
+                by_type[k] += v["by_type"][k]
+    out["launches"], out["partial_launches_by_type"] = launches, by_type
+    out["seconds"] = time.monotonic() - t_leg
+    return out
+
+
+def _status(port: int, path: str):
+    """The status of GET path, or None while nothing listens."""
+    try:
+        return http_get(port, path)[0]
+    except OSError:
+        return None
+
+
+def kafka_phase(np, root: Path, device="cuda", shape=KAFKA_SHAPE,
                 burst=KAFKA_BURST, speed_events=KAFKA_SPEED_EVENTS,
                 wordcount_lines=WORDCOUNT_LINES, centers=PMML_CENTERS,
-                assign_requests=PMML_ASSIGN, max_message=KAFKA_MAX_MESSAGE) -> dict:
+                assign_requests=PMML_ASSIGN, max_message=KAFKA_MAX_MESSAGE,
+                fleet_shape=(N_ITEMS, N_USERS, FEATURES)) -> dict:
     """Phase 10: the ALS loop deployed as separate `python -m
     oryx_tpu_torch.cli` processes joined only by kafka:// topics on one
     test broker (tests/torch_kafka_testbroker.py) on 127.0.0.1; then the
@@ -2573,6 +3098,19 @@ def kafka_phase(np, root: Path, device="cuda", shape=SMALL_SHAPE,
         out["flight"] = {"events": len(evs), "replicas": sorted(k for k in starts if k)}
         stop("serving-quantized")
         stop("speed")
+        # 6b. the fleet: `cli fleet` over card replicas at 1M x 50, its
+        # model on a kafka:// topic of this broker
+        import torch
+
+        fleet = fleet_leg(torch, np, root, srv, broker, start, stop, alive,
+                          device=device, shape=fleet_shape, burst=burst)
+        emit(fleet)
+        out["fleet"] = {k: fleet[k] for k in ("seconds", "launches",
+                                               "partial_launches_by_type")}
+        for k in launches:
+            launches[k] += fleet["launches"][k]
+        for k in by_type:
+            by_type[k] += fleet["partial_launches_by_type"][k]
         out["launches"], out["partial_launches_by_type"] = launches, by_type
         if cuda:
             check(all(v > 0 for v in launches.values()) and by_type["bfloat16"] > 0

@@ -253,9 +253,9 @@ class ALSServingModel(ServingModel):
     def fraction_loaded(self) -> float:
         """The announced model's loaded fraction, and 0 until its scoring
         view exists (the device view, or with LSH the partition view): the
-        manager builds it on the update listener's thread, so /ready never
-        answers 200 for a model whose first request would have to build
-        it."""
+        manager builds it on the update listener's thread, or on the thread
+        that installs the model, so /ready never answers 200 for a model
+        whose first request would have to build it."""
         if self._scoring_view() is None:
             return 0.0
         return self.state.fraction_loaded()
@@ -971,12 +971,28 @@ class ALSServingModelManager(AbstractServingModelManager):
         self.min_fraction = config.get_float(
             "oryx.serving.min-model-load-fraction", 0.8
         )
-        self.model: ALSServingModel | None = None
+        self._model: ALSServingModel | None = None
         self._rescorer_provider = _load_rescorer_provider(config)
         configure_post_pool(config.get_int("oryx.serving.api.post-workers", 8))
 
+    @property
+    def model(self) -> ALSServingModel | None:
+        return self._model
+
+    @model.setter
+    def model(self, model: ALSServingModel | None) -> None:
+        """Install the served model. A model installed outside the update
+        listener (``manager.model = ALSServingModel(state)``) gets its
+        scoring view here, on the installing thread, once enough of it
+        has loaded to serve: readiness then never waits on a build that
+        only the listener would have started."""
+        if (model is not None and model._scoring_view() is None
+                and model.state.fraction_loaded() >= self.min_fraction):
+            model.build_views()
+        self._model = model
+
     def get_model(self) -> ALSServingModel | None:
-        return self.model
+        return self._model
 
     def rescorer_provider(self):
         return self._rescorer_provider
@@ -1012,8 +1028,8 @@ class ALSServingModelManager(AbstractServingModelManager):
                 old.close()  # stop the replaced model's resync thread
 
     def close(self) -> None:
-        if self.model is not None:
-            self.model.close()
+        if self._model is not None:
+            self._model.close()
 
 
 def _load_rescorer_provider(config: Config):

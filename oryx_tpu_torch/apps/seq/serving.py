@@ -74,7 +74,8 @@ class SeqServingModel(ServingModel):
 
     def fraction_loaded(self) -> float:
         """The announced model's loaded fraction, and 0 until its device
-        view exists (the manager builds it on the listener's thread)."""
+        view exists (the manager builds it on the listener's thread, or on
+        the thread that installs the model)."""
         if self._device_view is None:
             return 0.0
         return self.state.fraction_loaded()
@@ -256,13 +257,27 @@ class SeqServingModelManager(AbstractServingModelManager):
         self.min_fraction = config.get_float(
             "oryx.serving.min-model-load-fraction", 0.8
         )
-        self.model: SeqServingModel | None = None
+        self._model: SeqServingModel | None = None
         configure_post_pool(
             config.get_int("oryx.serving.api.post-workers", 8)
         )
 
+    @property
+    def model(self) -> SeqServingModel | None:
+        return self._model
+
+    @model.setter
+    def model(self, model: SeqServingModel | None) -> None:
+        """Install the served model. A model installed outside the update
+        listener gets its device view here, on the installing thread, once
+        enough of it has loaded to serve."""
+        if (model is not None and model._device_view is None
+                and model.state.fraction_loaded() >= self.min_fraction):
+            model.build_view()
+        self._model = model
+
     def get_model(self) -> SeqServingModel | None:
-        return self.model
+        return self._model
 
     def consume_key_message(self, key: str | None, message: str) -> None:
         """Apply one update-topic message. A new model's device view is

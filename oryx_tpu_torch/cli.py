@@ -7,6 +7,7 @@ copy of oryx_tpu/cli.py):
   python -m oryx_tpu_torch.cli setup   --conf oryx.conf   create the two topics
   python -m oryx_tpu_torch.cli tail    --conf oryx.conf   tail input+update topics
   python -m oryx_tpu_torch.cli input   --conf oryx.conf   stdin lines -> input topic
+  python -m oryx_tpu_torch.cli fleet   --conf oryx.conf   N serving replicas + front
   python -m oryx_tpu_torch.cli config | import-pmml | flight | perf | loadtest
 
 The three layers run on the CUDA card (each raises without one) unless
@@ -17,8 +18,10 @@ overrides a config key (repeatable); ``--app <name>`` (als | kmeans | rdf
 (apps/spi.py) underneath any explicit ``--set``. With
 ``oryx.serving.api.processes = N > 1`` the serving command supervises N
 replica processes sharing one port through SO_REUSEPORT, each opening the
-card itself. The JAX package's ``fleet`` and ``pod`` commands are not
-ported yet (ROADMAP queue 1 items 10 and 11) and exit with a message.
+card itself; ``fleet`` runs N replicas on distinct ports behind the fleet
+front (fleet/), each opening the card itself too. The JAX package's
+``pod`` command is not ported yet (ROADMAP queue 1 item 11) and exits
+with a message.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import time
 from oryx_tpu_torch.common.config import Config, load_config
 
 _NOT_PORTED = {
-    "fleet": "ROADMAP queue 1 item 10",
     "pod": "ROADMAP queue 1 item 11",
 }
 
@@ -54,6 +56,26 @@ def _parse_args(argv):
         help="packaged app to run (registry lookup, apps/spi.py): als | "
         "kmeans | rdf | example | seq. Overlays the app's batch/speed/"
         "serving classes and serving resources underneath any explicit --set",
+    )
+    p.add_argument(
+        "--replicas", type=int, default=None,
+        help="fleet: serving replica processes to supervise on this host "
+        "(overrides oryx.fleet.replicas)",
+    )
+    p.add_argument(
+        "--front-port", type=int, default=None,
+        help="fleet: listening port of the L7 fleet front (overrides "
+        "oryx.fleet.front.port)",
+    )
+    p.add_argument(
+        "--policy", choices=["round-robin", "hash"], default=None,
+        help="fleet: front placement policy (overrides "
+        "oryx.fleet.front.policy; hash = consistent-hash-by-user)",
+    )
+    p.add_argument(
+        "--shards", type=int, default=None,
+        help="fleet: device-view shards per replica (overrides "
+        "oryx.fleet.shards); only 1 until sharded views are ported",
     )
     p.add_argument("--conf", help="user config file (HOCON-like key paths)")
     p.add_argument(
@@ -356,36 +378,6 @@ _COMPILE_HIST = "oryx_xla_compile_seconds"
 _COMPILE_TOTAL = "oryx_xla_compiles_total"
 
 
-def _metric_families(text: str) -> dict[str, list[str]]:
-    """One exposition page -> {family: its sample lines}. A sample belongs
-    to the preceding TYPE's family when its name extends it
-    (``foo_bucket`` under ``foo``), else to its own name; ``# EOF`` ends
-    an OpenMetrics page."""
-    families: dict[str, list[str]] = {}
-    current: str | None = None
-    for line in text.splitlines():
-        if not line.strip():
-            continue
-        if line.startswith("#"):
-            if line.strip() == "# EOF":
-                break
-            parts = line.split(None, 3)
-            if len(parts) >= 3 and parts[1] in ("HELP", "TYPE", "UNIT"):
-                current = parts[2]
-                families.setdefault(current, [])
-            continue
-        ends = [i for i in (line.find("{"), line.find(" ")) if i != -1]
-        if not ends or min(ends) <= 0:
-            continue
-        name = line[: min(ends)]
-        if current is None or not (name == current or name.startswith(current + "_")):
-            family = name
-        else:
-            family = current
-        families.setdefault(family, []).append(line)
-    return families
-
-
 def _parse_metric_sample(
     line: str,
 ) -> tuple[str, dict[str, str], float] | None:
@@ -449,11 +441,16 @@ def render_perf_report(text: str) -> str:
     (testable without a live replica). Phase p50/p99 are
     bucket-upper-bound estimates, phase share is share of summed phase
     seconds, idle-gap causes rank by total attributed seconds."""
-    families = _metric_families(text)
+    from oryx_tpu_torch.fleet.observe import parse_exposition
+
+    families, _ = parse_exposition(text)
 
     def samples(family: str) -> list[tuple[str, dict[str, str], float]]:
+        f = families.get(family)
+        if f is None:
+            return []
         out = []
-        for line in families.get(family, []):
+        for line in f.samples.get("", []):
             parsed = _parse_metric_sample(line)
             if parsed is not None:
                 out.append(parsed)
@@ -713,6 +710,7 @@ def _supervise_serving_replicas(config: Config, n_procs: int, argv: list[str]) -
 _VALUE_OPTS = {
     "--conf", "--url", "--paths", "--rate", "--duration", "--workers", "--pmml", "--set", "--loops", "--sync-mode",
     "--sync-headroom", "--app", "--kind",
+    "--replicas", "--front-port", "--policy", "--shards",
 }
 
 
@@ -755,6 +753,83 @@ def _child_flags(
         out.append(tok)
         i += 1
     return out
+
+
+def _fleet_child_flags(raw_argv: list[str]) -> list[str]:
+    return _child_flags(
+        raw_argv, {"--replicas", "--front-port", "--policy", "--shards"}
+    )
+
+
+def cmd_fleet(config: Config, args, raw_argv: list[str]) -> int:
+    """One-host serving fleet: N replica serving processes on distinct
+    ports (fleet/supervisor.py) behind the L7 front (fleet/front.py) —
+    round-robin or consistent-hash placement, health-driven ejection,
+    retry-on-shed, and the controller's canary rollout and autoscaling
+    (fleet/control.py):
+
+        python -m oryx_tpu_torch.cli fleet --conf oryx.conf --replicas 2 \\
+            --front-port 8090 --policy hash
+
+    Every replica opens the CUDA card itself (``oryx.compute.platform =
+    cpu`` in the config or a ``--set`` puts them on the CPU); this process
+    opens no device. SIGTERM/SIGINT stop the front first (stop taking
+    traffic), then fan out to the replicas. Dead replicas are restarted
+    with backoff; a crash-looping fleet exits nonzero. A shard count above
+    1 is refused as the serving layer refuses it."""
+    from oryx_tpu_torch.apps.als.serving import SyncConfig
+    from oryx_tpu_torch.fleet import FleetController, FleetFront, FleetSupervisor
+
+    overlay = {}
+    if args.replicas is not None:
+        overlay["oryx.fleet.replicas"] = args.replicas
+    if args.front_port is not None:
+        overlay["oryx.fleet.front.port"] = args.front_port
+    if args.policy is not None:
+        overlay["oryx.fleet.front.policy"] = args.policy
+    if args.shards is not None:
+        overlay["oryx.fleet.shards"] = args.shards
+    if overlay:
+        config = config.overlay(overlay)
+    # the replicas' own sync validation, run once here: a sharded fleet
+    # fails before any replica starts
+    SyncConfig.from_config(config.overlay({
+        "oryx.serving.api.sync.shard-count":
+            config.get_int("oryx.fleet.shards", 1),
+    }))
+    sup = FleetSupervisor(config, argv=_fleet_child_flags(raw_argv))
+    front = None
+    controller = None
+    prev_term = signal.signal(signal.SIGTERM, lambda *_: sup.request_stop())
+    rc = 0
+    try:
+        sup.start()
+        sup.wait_listening(timeout=120)
+        front = FleetFront(config, backends=sup.backends())
+        front.start()
+        # the closed control loop over both: canary rollout + promotion
+        # gating when oryx.fleet.canary.enabled, SLO-burn autoscaling
+        # when oryx.fleet.autoscale.enabled (a no-op thread otherwise —
+        # it still mirrors crash-loop give-ups into /fleet/status)
+        controller = FleetController(config, sup, front)
+        controller.start()
+        print(
+            f"fleet: {len(sup.ports())} replicas on ports "
+            f"{sup.ports()[0]}..{sup.ports()[-1]}, front :{front.port} "
+            f"({front.policy})",
+            flush=True,
+        )
+        rc = sup.run()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if controller is not None:
+            controller.close()  # no new rollout/scale decisions mid-teardown
+        if front is not None:
+            front.close()  # stop taking traffic before killing backends
+        sup.stop()
+        signal.signal(signal.SIGTERM, prev_term)
+    return rc
 
 
 class _H2LoadConn:
@@ -1103,6 +1178,9 @@ def main(argv=None) -> int:
             # positional)
             raw = list(argv if argv is not None else sys.argv[1:])
             return cmd_serving(config, _child_flags(raw))
+        if args.command == "fleet":
+            raw = list(argv if argv is not None else sys.argv[1:])
+            return cmd_fleet(config, args, raw)
         if args.command == "flight":
             return cmd_flight(config, args.kind)
         if args.command == "perf":

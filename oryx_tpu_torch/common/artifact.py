@@ -347,12 +347,10 @@ class ArtifactRelay:
                     # same bytes (same sha); nothing left to decode
                     self._adopt(ref)
                     return
-                art = ModelArtifact.from_string(blob.decode("utf-8"))
-                self._materialize(ref, art, sha=sha)
+                self._materialize(ref, blob, sha=sha)
             _distribution_bytes().inc(len(blob), mode="shared")
             return
-        art = ModelArtifact.from_string(blob.decode("utf-8"))
-        self._materialize(ref, art, sha=sha)
+        self._materialize(ref, blob, sha=sha)
         _distribution_bytes().inc(len(blob), mode="per-replica")
 
     def _adopt(self, ref: str) -> None:
@@ -422,21 +420,28 @@ class ArtifactRelay:
         return self._root() / hashlib.sha256(ref.encode()).hexdigest()[:24]
 
     def _materialize(
-        self, ref: str, art: ModelArtifact, sha: str | None = None
+        self, ref: str, blob: bytes, sha: str | None = None
     ) -> None:
-        """Write the assembled artifact into the stable cache, atomically
-        enough for concurrent processes: build in a per-pid temp dir, then
-        rename into place; a lost race just adopts the winner's copy
-        (identical bytes — both assembled the same chunk stream). The sha
-        marker rides INSIDE the dir (written before the rename) so a
-        sibling never reads a marker whose artifact is half-written."""
+        """Write an assembled chunk stream (the artifact's serialized form)
+        into the stable cache, atomically enough for concurrent processes:
+        build in a per-pid temp dir, then rename into place; a lost race
+        just adopts the winner's copy (identical bytes — both assembled the
+        same chunk stream). The stream's npz archive of tensors is written
+        as the publisher encoded it, never inflated and deflated again on
+        the way. The sha marker rides INSIDE the dir
+        (written before the rename) so a sibling never reads a marker
+        whose artifact is half-written."""
         import os
         import shutil
 
         dest = self._dest(ref)
         tmp = self._root() / f".{dest.name}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
-        art.write(tmp)
+        doc = json.loads(blob)
+        npz = doc.pop("tensors_b64", None)
+        ModelArtifact(doc["app"], doc.get("extensions"), doc.get("content")).write(tmp)
+        if npz is not None:
+            (tmp / TENSORS_FILENAME).write_bytes(base64.b64decode(npz))
         if sha is not None:
             with open(tmp / RELAY_META_FILENAME, "w", encoding="utf-8") as f:
                 json.dump({"sha": sha}, f)

@@ -1,9 +1,8 @@
 """Parallel task fan-out helpers (the port's copy of
-``collect_in_parallel`` and ``config_overlay_from_sets`` from
-oryx_tpu/common/executil.py; its other helpers have no caller in the
-CLI or the layers: the fleet's port-run probe comes with the fleet, and
-a port process runs on the CPU when ``oryx.compute.platform = cpu`` says
-so, not through a child environment).
+``collect_in_parallel``, ``free_port_run`` and ``config_overlay_from_sets``
+from oryx_tpu/common/executil.py; its CPU child environment has no
+counterpart: a port process runs on the CPU when
+``oryx.compute.platform = cpu`` says so, not through its environment).
 
 Mirrors the reference's ExecUtils (framework/oryx-common
 .../lang/ExecUtils.java:32-75): run N tasks at parallelism P, optionally on a
@@ -36,6 +35,34 @@ def collect_in_parallel(
         return [task(i) for i in range(num_tasks)]
     with ThreadPoolExecutor(max_workers=parallelism) as pool:
         return list(pool.map(task, range(num_tasks)))
+
+
+def free_port_run(n: int, host: str = "127.0.0.1", attempts: int = 50) -> int:
+    """Base of a run of ``n`` consecutive free TCP ports on ``host`` —
+    the shape a fleet supervisor's ``base-port + i`` layout needs. All
+    ``n`` ports are held bound while probing so the run is free at the
+    moment of return (the usual bind race remains: the caller must bind
+    soon after)."""
+    import socket
+
+    for _ in range(attempts):
+        socks: list[socket.socket] = []
+        try:
+            s = socket.socket()
+            s.bind((host, 0))
+            base = s.getsockname()[1]
+            socks.append(s)
+            for i in range(1, n):
+                si = socket.socket()
+                si.bind((host, base + i))
+                socks.append(si)
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no run of {n} free ports found on {host}")
 
 
 def config_overlay_from_sets(pairs) -> dict:

@@ -41,8 +41,7 @@ log = logging.getLogger(__name__)
 
 # Event-kind catalog: every `record(kind="...")` call site names one of
 # these. The kinds are the JAX package's, so one ring reads the same
-# whichever package wrote it; the fleet's have no writer in this package
-# yet.
+# whichever package wrote it; the fleet's are written by fleet/.
 EVENT_KINDS: dict[str, str] = {
     "process-start": "a serving/fleet process configured its recorder",
     "ejection": "the fleet front ejected a replica from routing",

@@ -6,9 +6,9 @@ lambda contract — replicas are stateless consumers), which is exactly
 wrong during a canary rollout: the point of a canary is that a NEW
 generation serves on one replica while the rest of the fleet keeps the
 incumbent until the gate promotes it. This module is the per-process
-half of that control loop (the fleet half, the JAX package's
-``fleet/control.py``, is not ported; an operator drives
-``POST /control/model/approve|rollback``): it
+half of that control loop (the fleet half is ``fleet/control.py``,
+which drives ``POST /control/model/approve|rollback``, as an operator
+may): it
 sits inside ``api._dispatch_update`` — the one choke point every
 MODEL/MODEL-REF/TRACE message already flows through — and decides, per
 generation, whether this replica adopts it now, holds it, or rolls it

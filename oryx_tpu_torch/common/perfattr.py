@@ -484,10 +484,10 @@ def classify_idle_gap(
     """Split one inter-dispatch idle gap into cause → seconds.
 
     The dispatcher measures what it can directly — condition-variable
-    wait time (``wait_s`` → empty_queue), host result fetch/distribution
-    time (``serialize_s`` → host_serialize), and device-down backoff
-    (``down_s`` → failover_backoff) — each capped at what the gap can
-    still hold, in that order. Residue up to max(2ms, 10% of the gap) is
+    wait time (``wait_s`` → empty_queue), its own host work between its
+    stamped waits, launches and syncs (``serialize_s`` → host_serialize),
+    and device-down backoff (``down_s`` → failover_backoff) — each
+    capped at what the gap can still hold, in that order. Residue up to max(2ms, 10% of the gap) is
     dispatcher loop overhead between the measured timestamps
     (pick/group bookkeeping — host work by definition) and folds
     into host_serialize; anything larger is reported honestly as

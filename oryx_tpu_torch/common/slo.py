@@ -19,9 +19,9 @@ hot path):
   observations at/under ``oryx.monitoring.slo.latency.threshold-sec``.
 - ``front-availability``: fraction of
   ``oryx_fleet_front_requests_total`` answered by a replica
-  (``replica="none"`` means the client saw the front's own 503). This
-  package has no fleet front yet, so the family stays empty and the burn
-  reads 0, as the JAX package's does with no front.
+  (``replica="none"`` means the client saw the front's own 503). The
+  fleet front (fleet/front.py) feeds it; in a process without a front the
+  family stays empty and the burn reads 0.
 - ``quality``: fraction of shadow-rescored responses
   (``common/qualitystats.py``) whose measured recall held the
   ``oryx.monitoring.slo.quality.recall-floor`` — the live model-quality

@@ -361,6 +361,102 @@ def span_forest(spans: list[Span]) -> list[dict]:
     return roots
 
 
+# -- cross-process stitching ------------------------------------------------
+#
+# One process's ring answers "where did this request's latency go HERE";
+# a fleet answers it only when the front's span tree and every replica's
+# can be laid side by side under one trace id. The helpers below take
+# span FORESTS (the /debug/traces JSON shape, which crosses process
+# boundaries as plain dicts) from N processes and stitch them: grouped
+# by trace id, or exported as one Chrome trace with a LANE PER PROCESS
+# (Perfetto renders each pid as its own track, so front queueing vs
+# replica dispatch vs device time line up on the shared wall clock).
+
+
+def flatten_forest(roots: list[dict]) -> list[dict]:
+    """Forest (nested ``children``) -> flat span list, children stripped.
+    Tolerant of foreign dicts: nodes without a trace_id are dropped."""
+    out: list[dict] = []
+    stack = [r for r in roots if isinstance(r, dict)]
+    while stack:
+        node = stack.pop()
+        kids = node.get("children") or []
+        stack.extend(k for k in kids if isinstance(k, dict))
+        if node.get("trace_id"):
+            flat = {k: v for k, v in node.items() if k != "children"}
+            out.append(flat)
+    return out
+
+
+def stitch_traces(
+    processes: list[tuple[str, list[dict]]]
+) -> list[dict]:
+    """[(process label, span forest)] -> one entry per trace id, spans
+    labeled with their owning process, ordered by earliest span start.
+    Duplicate span ids across sources (co-resident processes sharing a
+    ring in tests) keep the first occurrence only."""
+    by_trace: dict[str, list[dict]] = {}
+    seen: set[tuple[str, str]] = set()
+    for label, forest in processes:
+        for span in flatten_forest(forest):
+            key = (span["trace_id"], span.get("span_id", ""))
+            if key in seen:
+                continue
+            seen.add(key)
+            by_trace.setdefault(span["trace_id"], []).append(
+                {"process": label, **span}
+            )
+    out = []
+    for trace_id, spans in by_trace.items():
+        spans.sort(key=lambda s: s.get("start_ms", 0.0))
+        out.append({
+            "trace_id": trace_id,
+            "processes": sorted({s["process"] for s in spans}),
+            "spans": spans,
+        })
+    out.sort(key=lambda t: t["spans"][0].get("start_ms", 0.0))
+    return out
+
+
+def stitched_chrome(processes: list[tuple[str, list[dict]]]) -> dict:
+    """[(process label, span forest)] -> Chrome trace-event JSON with one
+    pid lane per process (``process_name`` metadata names the lanes), so
+    the stitched artifact opens in Perfetto with the front and each
+    replica as separate tracks on the shared wall-clock timebase."""
+    events: list[dict] = []
+    seen: set[tuple[str, str]] = set()
+    for pid, (label, forest) in enumerate(processes, start=1):
+        events.append({
+            "name": "process_name",
+            "ph": "M",
+            "pid": pid,
+            "tid": 0,
+            "args": {"name": label},
+        })
+        for span in flatten_forest(forest):
+            key = (span["trace_id"], span.get("span_id", ""))
+            if key in seen:
+                continue
+            seen.add(key)
+            events.append({
+                "name": span.get("name", "?"),
+                "cat": "oryx-fleet",
+                "ph": "X",
+                "ts": float(span.get("start_ms", 0.0)) * 1000.0,
+                "dur": max(0.0, float(span.get("duration_ms", 0.0))) * 1000.0,
+                "pid": pid,
+                "tid": 1,
+                "args": {
+                    "process": label,
+                    "trace_id": span["trace_id"],
+                    "span_id": span.get("span_id", ""),
+                    "parent_id": span.get("parent_id") or "",
+                    **(span.get("attrs") or {}),
+                },
+            })
+    return {"displayTimeUnit": "ms", "traceEvents": events}
+
+
 # -- process-global tracer --------------------------------------------------
 
 _default = Tracer()

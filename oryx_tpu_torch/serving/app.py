@@ -437,13 +437,18 @@ class ServingApp:
 
     def get_serving_model(self):
         """The loaded model, or 503 until fraction-loaded crosses the
-        threshold (AbstractOryxResource.java:75-95). A model past the
-        configured staleness bound still serves, but the response carries
-        a ``Warning: 110`` header (RFC 7234 "response is stale") so
-        clients and probes can see degraded mode."""
+        threshold (AbstractOryxResource.java:75-95). The 503 carries
+        ``Retry-After``: like a shed, it refused the request before doing
+        any work, so a fleet front retries it on another replica (a
+        restarted replica answers its probes before its model loads). A
+        model past the configured staleness bound still serves, but the
+        response carries a ``Warning: 110`` header (RFC 7234 "response is
+        stale") so clients and probes can see degraded mode."""
         model = self.model_manager.get_model()
         if model is None or model.fraction_loaded() < self.min_fraction:
-            raise OryxServingException(503, "model not yet available")
+            raise OryxServingException(
+                503, "model not yet available", headers=(("Retry-After", "1"),)
+            )
         staleness = self.model_staleness()
         if staleness is not None:
             req = getattr(_current_request, "req", None)

@@ -30,9 +30,11 @@ on, ``batcher.queue_wait`` / ``batcher.device`` /
 ``batcher.compile_stall`` spans. Every resolved group records one
 ``DispatchRecord`` (common/perfstats.py: FLOPs, bytes, wall-clock, the
 peak of the dispatched type), every gap between dispatches is split by
-cause (``classify_idle_gap``), and the dispatcher thread logs its own
-loop as pieces that do not overlap (``TopKBatcher.timeline``). The
-accounting reads host clocks only: it adds no device synchronisation.
+cause (``classify_idle_gap``) from slices the dispatcher stamps end to
+end (its waits, and its own host work between them), and the dispatcher
+thread logs its own loop as pieces that do not overlap
+(``TopKBatcher.timeline``). The accounting reads host clocks only: it
+adds no device synchronisation.
 
 A group whose dispatch fails gets the exception on every one of its
 futures, and there is no host fallback. The same holds for a wedge: a
@@ -237,13 +239,17 @@ class TopKBatcher:
         # idle-gap attribution (common/perfattr.py): _gap_mark is when the
         # card was last known busy (dispatch issued / results on the host);
         # the accumulators hold measured slices of the idle time since —
-        # cond waits (empty queue), read-back and distribution tails (host
-        # serialize), and the down window (failover backoff). Classified
-        # and reset at the next launch, reset whenever results land.
+        # cond waits (empty queue), the dispatcher's own host work between
+        # its stamped waits, launches and syncs (pick, grouping, staging,
+        # result distribution, loop bookkeeping: host serialize), and the
+        # down window (failover backoff). _host_from is where the
+        # dispatcher's current host slice began. Classified and reset at
+        # the next launch, reset whenever results land.
         self._gap_mark = time.monotonic()  # guarded-by: _lock
         self._gap_wait = 0.0  # guarded-by: _lock
-        self._gap_resolve = 0.0  # guarded-by: _lock
+        self._gap_host = 0.0  # guarded-by: _lock
         self._gap_down = 0.0  # guarded-by: _lock
+        self._host_from = self._gap_mark  # guarded-by: _lock
         self._down_since = 0.0  # guarded-by: _lock
         # the dispatcher thread's host timeline: one (piece, t0, t1) per
         # slice of its loop — "wait" (empty queue), "stage" (ledgers and
@@ -432,10 +438,12 @@ class TopKBatcher:
             with self._cond:
                 while not self._queue and not self._closed and not inflight:
                     t_w = time.monotonic()
+                    self._charge_host(t_w)
                     self._cond.wait()
                     # empty-queue idle accounting for the gap classifier
                     t_woke = time.monotonic()
                     self._gap_wait += t_woke - t_w
+                    self._host_from = t_woke
                     self.timeline.append(("wait", t_w, t_woke))
                 if self._closed and not self._queue and not inflight:
                     return
@@ -471,6 +479,15 @@ class TopKBatcher:
                     if p.future.done():
                         self._inflight.pop(id(p), None)
             inflight = launched
+
+    def _charge_host(self, t: float) -> None:  # holds _lock
+        """End the dispatcher's current host slice at ``t``: its own work
+        since its last stamped wait, launch or sync (pick, grouping,
+        staging, result distribution, loop bookkeeping) is host work the
+        card idles behind, so the part inside the open gap goes to that
+        gap's host_serialize slice."""
+        self._gap_host += max(0.0, t - max(self._host_from, self._gap_mark))
+        self._host_from = t
 
     def _launch(self, batch: list[_Pending]) -> list[_Group]:
         """Issue one device dispatch per (matrix, k-bucket, recall) group
@@ -542,18 +559,20 @@ class TopKBatcher:
             rows[i] = p.vec
         cold = on_cuda and not topk.library_loaded()
         t_disp = time.monotonic()
-        if classify_gap:
-            # the idle gap between the previous dispatch finishing and
-            # this one being issued, split by measured cause
-            with self._lock:
+        causes: dict[str, float] = {}
+        with self._lock:
+            self._charge_host(t_disp)
+            if classify_gap:
+                # the idle gap between the previous dispatch finishing and
+                # this one being issued, split by measured cause
                 causes = classify_idle_gap(
                     t_disp - self._gap_mark, wait_s=self._gap_wait,
-                    serialize_s=self._gap_resolve, down_s=self._gap_down,
+                    serialize_s=self._gap_host, down_s=self._gap_down,
                 )
-                self._gap_wait = self._gap_resolve = self._gap_down = 0.0
+                self._gap_wait = self._gap_host = self._gap_down = 0.0
                 self._gap_mark = t_disp
-            for cause, s in causes.items():
-                _PA.record_idle_gap(cause, s)
+        for cause, s in causes.items():
+            _PA.record_idle_gap(cause, s)
         xs = staged.to(dev, non_blocking=True) if on_cuda else staged
         vals, idx = topk_dot_batch(xs, y, k=kb, recall=recall)
         event = None
@@ -572,6 +591,7 @@ class TopKBatcher:
             # the card is busy from here: the next idle gap starts when
             # its results land (_resolve)
             self._gap_mark = max(self._gap_mark, t_issued)
+            self._host_from = t_issued
         if cold and tr.enabled:
             # this launch loaded the kernel library (ops/topk.py records
             # the compile and its idle gap); mark the stall in the trace
@@ -585,6 +605,8 @@ class TopKBatcher:
     def _resolve(self, g: _Group) -> None:
         try:
             t_sync = time.monotonic()
+            with self._lock:
+                self._charge_host(t_sync)
             if g.event is not None:
                 g.event.synchronize()
             vals = g.vals.numpy()
@@ -610,7 +632,8 @@ class TopKBatcher:
                 # before it belong to no gap
                 if t_done > self._gap_mark:
                     self._gap_mark = t_done
-                    self._gap_wait = self._gap_resolve = self._gap_down = 0.0
+                    self._gap_wait = self._gap_host = self._gap_down = 0.0
+                self._host_from = t_done
             for i, p in enumerate(g.requests):
                 p.finish_dev_span()
                 if p.ledger is not None:
@@ -622,12 +645,7 @@ class TopKBatcher:
                 try_set_result(
                     p.future, (vals[i, :k_eff].copy(), idx[i, :k_eff].copy())
                 )
-            t_out = time.monotonic()
-            self.timeline.append(("distribute", t_done, t_out))
-            with self._lock:
-                # result distribution: host work the card idles behind
-                # (the host_serialize slice of the next gap)
-                self._gap_resolve += t_out - t_done
+            self.timeline.append(("distribute", t_done, time.monotonic()))
         except Exception as e:
             log.exception("batcher group resolve failed (k=%d)", g.kb)
             for p in g.requests:

@@ -3,7 +3,8 @@ tests/test_cli.py's contracts: topic setup, the stdin input pump, --set
 overlays, a serving subprocess, loadtest over HTTP/1.1 and HTTP/2 and
 across event loops, serving replicas sharing one port, the effective
 config, the platform switch and --app; then the commands this slice adds
-(import-pmml, flight, perf, tail, the fleet and pod refusals), each beside
+(import-pmml, flight, perf, tail, the pod refusal and the fleet's shard
+refusal), each beside
 the JAX package's CLI on the same input where both run: the same config
 lines (class paths aside), the same published messages, the same perf
 report. Exact throughout.
@@ -365,11 +366,19 @@ def test_app_flag_survives_child_argv_rebuild():
                      "--set", "a=b", "--trace"]
 
 
-@pytest.mark.parametrize("command", ["fleet", "pod"])
+@pytest.mark.parametrize("command", ["pod"])
 def test_fleet_and_pod_are_not_ported_yet(command):
     with pytest.raises(SystemExit, match="not ported yet") as ei:
         cli.main([command, "--replicas", "3", "--compute", "2"])
     assert "ROADMAP queue 1 item" in str(ei.value)
+
+
+def test_cli_fleet_refuses_shards():
+    """``cli fleet --shards 2`` is refused with the serving layer's own
+    message, before any replica starts: shards per replica are not
+    ported."""
+    with pytest.raises(ValueError, match="sharded views are not ported yet"):
+        cli.main(["fleet", "--replicas", "3", "--shards", "2"])
 
 
 def _kmeans_pmml(n: int = 4) -> str:
@@ -433,6 +442,36 @@ def test_flight_filters_by_kind(tmp_path, capsys):
     cap = capsys.readouterr()
     assert [json.loads(x)["generation"] for x in cap.out.strip().splitlines()] == [5, 6]
     assert "2 event(s)" in cap.err and "(3 total)" in cap.err
+    assert cli.main(["flight", "--kind", "no-such-kind", *flags]) == 2
+
+
+def test_flight_kind_filters_the_fleets_kinds(tmp_path, capsys):
+    """tests/test_qualitystats.py::test_cli_flight_kind_filter against the
+    port's CLI, over every kind the fleet writes: each filters alone, two
+    filter together in ring order, an unknown kind fails loudly."""
+    from oryx_tpu_torch.common.flightrec import EVENT_KINDS, FlightRecorder
+
+    fleet_kinds = [
+        "ejection", "readmission", "replica-death", "canary-start",
+        "canary-hold", "canary-promote", "canary-rollback", "autoscale",
+        "crash-loop",
+    ]
+    assert set(fleet_kinds) <= set(EVENT_KINDS)
+    rec = FlightRecorder()
+    rec.dir = str(tmp_path)
+    for k in fleet_kinds:
+        rec.record(kind=k, replica="r0")
+    rec.record(kind="generation", generation=5)
+    rec.record(kind="quality-alarm", generation=5, live_recall=0.1)
+    flags = _sets(f"oryx.monitoring.flight.dir={tmp_path}")
+    for k in fleet_kinds:
+        assert cli.main(["flight", "--kind", k, *flags]) == 0
+        out = capsys.readouterr().out.strip().splitlines()
+        assert [json.loads(x)["kind"] for x in out] == [k]
+    assert cli.main(["flight", "--kind", "quality-alarm", "--kind",
+                     "ejection", *flags]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(x)["kind"] for x in out] == ["ejection", "quality-alarm"]
     assert cli.main(["flight", "--kind", "no-such-kind", *flags]) == 2
 
 

@@ -66,6 +66,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert set(KMEANS_RDF_MODULES) <= names
     assert set(SEQ_MODULES) <= names
     assert set(BUS_CLI_MODULES) <= names
+    assert set(FLEET_MODULES) <= names
 
 
 # the k-means and RDF apps' modules and what they share
@@ -257,6 +258,29 @@ def test_serving_layer_and_cli_raise_without_cuda(monkeypatch):
                   "oryx.serving.api.processes=2"])
 
 
+def test_cli_fleet_replicas_raise_without_cuda(tmp_path):
+    """``cli fleet`` with no ``oryx.compute.platform`` starts replicas that
+    each resolve the card, raise the CUDA RuntimeError and exit, instead
+    of serving on the CPU; the fleet then fails before its front starts."""
+    import os
+
+    from oryx_tpu_torch.common.executil import free_port_run
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", TMPDIR=str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-m", "oryx_tpu_torch.cli", "fleet", "--app", "als",
+         "--replicas", "2",
+         "--set", f"oryx.fleet.base-port={free_port_run(2)}",
+         "--set", f"oryx.fleet.data-dir={tmp_path / 'fleet'}",
+         "--set", f"oryx.monitoring.flight.dir={tmp_path / 'flight'}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "CUDA" in out.stderr, out.stderr[-2000:]
+    assert "before listening" in out.stderr, out.stderr[-2000:]
+    assert "fleet:" not in out.stdout  # the front never started
+
+
 def test_batch_and_speed_layers_and_cli_raise_without_cuda(monkeypatch):
     """Built from config alone, the batch and speed layers load the ALS
     update and speed manager by name, which resolve the card and raise
@@ -298,7 +322,7 @@ def test_bus_and_cli_modules_import_with_jax_blocked():
     example app, imported alone in a fresh process with jax blocked, loads
     no module of the JAX package; kafka:// resolves to the port's client,
     the native appender and the example app are there, and the CLI refuses
-    only fleet and pod."""
+    only pod."""
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -314,7 +338,47 @@ def test_bus_and_cli_modules_import_with_jax_blocked():
         assert issubclass(NativeAppender, NativeParser)
         assert app_overlay("example")["oryx.batch.update-class"].startswith(
             "oryx_tpu_torch.apps.example.")
-        assert set(cli._NOT_PORTED) == {{"fleet", "pod"}}
+        assert set(cli._NOT_PORTED) == {{"pod"}}
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+# the serving fleet: ring, federation, supervisor, front, controller
+FLEET_MODULES = (
+    "oryx_tpu_torch.fleet", "oryx_tpu_torch.fleet.ring",
+    "oryx_tpu_torch.fleet.observe", "oryx_tpu_torch.fleet.supervisor",
+    "oryx_tpu_torch.fleet.front", "oryx_tpu_torch.fleet.control",
+)
+
+
+def test_fleet_modules_import_with_jax_blocked():
+    """Each module of the fleet, imported alone in a fresh process with jax
+    blocked, loads no module of the JAX package; the package exports the
+    JAX package's names, and its replicas are the port's ``cli serving``."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {FLEET_MODULES!r}:
+            importlib.import_module(name)
+        import oryx_tpu_torch.fleet as fleet
+        assert set(fleet.__all__) == {{
+            "FleetController", "FleetFront", "FleetSupervisor", "HashRing",
+            "ReplicaInfo", "replica_overlays",
+        }}
+        import inspect
+        from oryx_tpu_torch.fleet.supervisor import FleetSupervisor
+        assert '"oryx_tpu_torch.cli"' in inspect.getsource(FleetSupervisor._spawn)
         leaked = sorted(
             k for k in sys.modules
             if k == "oryx_tpu" or k.startswith("oryx_tpu.")

@@ -1,9 +1,10 @@
 """LSH candidate sampling, the live quality plane and the score-mode recall
 gate of the port, against the JAX package's own contracts
-(tests/test_lsh.py, tests/test_qualitystats.py but its fleet, `cli flight`
-and chaos cases, which wait for their slice, and
-tests/test_quality_gate.py::test_score_mode_recall_gate) and side by side
-with the JAX package on the same seeded inputs:
+(tests/test_lsh.py, tests/test_qualitystats.py but its `cli flight` and
+chaos cases, which tests/test_torch_cli.py and tests/test_torch_fleet_chaos.py
+hold, and tests/test_quality_gate.py::test_score_mode_recall_gate), the
+fleet-front case of tests/test_score_modes.py, and side by side with the
+JAX package on the same seeded inputs:
 
 - LSH: with the same ``RandomManager`` test seed both packages draw the
   same hyperplanes and partitions, and their serving models give the same
@@ -822,3 +823,122 @@ def test_recall_gate_equals_the_jax_package():
     assert abs(port.recall_approx - jax.recall_approx) <= allowance
     assert (port.k, port.n_items, port.n_queries, port.features) == (
         jax.k, jax.n_items, jax.n_queries, jax.features)
+
+
+# ---- the fleet front ----------------------------------------------------------
+
+
+def test_fleet_status_carries_quality_and_slo_errors():
+    """tests/test_qualitystats.py's fleet case: /fleet/status federates a
+    replica's quality scorecard verbatim and carries the SLO read errors."""
+    from oryx_tpu_torch.fleet.front import FleetFront
+
+    cfg = load_config(overlay={"oryx.id": "tqfleet"})
+    front = FleetFront(cfg, backends=[("r0", "127.0.0.1", 18099)], port=0)
+    front.replicas[0].quality = {"live_recall_at_10": 0.97, "samples": 12}
+    status, body, ctype, _ = front._local_endpoint("GET", "/fleet/status")
+    assert status == 200 and ctype == "application/json"
+    doc = json.loads(body)
+    assert "slo_errors" in doc
+    assert doc["replicas"][0]["quality"] == {
+        "live_recall_at_10": 0.97, "samples": 12
+    }
+
+
+def _recall(got_ids, exact_ids) -> float:
+    return len(set(got_ids) & set(exact_ids)) / max(1, len(exact_ids))
+
+
+@pytest.mark.parametrize("mode", ["quantized", "approx"])
+def test_score_mode_serves_end_to_end_http_and_fleet_front(mode):
+    """tests/test_score_modes.py's end to end case against the port (its
+    manager on the CPU): each non-exact mode serves /recommend at recall
+    >= 0.95 over HTTP, and >= 0.9 routed through the fleet front."""
+    import urllib.request
+
+    from oryx_tpu.common.artifact import ModelArtifact
+    from oryx_tpu_torch.apps.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.bus.broker import get_broker, topics
+    from oryx_tpu_torch.bus.inproc import InProcBroker
+    from oryx_tpu_torch.fleet.front import FleetFront
+    from oryx_tpu_torch.serving.server import ServingLayer
+
+    InProcBroker.reset_all()
+    rng = np.random.default_rng(17)
+    n, f = 1500, 16
+    bus = f"mem://tmode-{mode}"
+    cfg = load_config(overlay={
+        "oryx.id": f"tmode-{mode}",
+        "oryx.input-topic.broker": bus,
+        "oryx.update-topic.broker": bus,
+        "oryx.serving.api.port": 0,
+        "oryx.serving.api.read-only": True,
+        "oryx.serving.init-topics": True,
+        "oryx.serving.api.score-mode": mode,
+        "oryx.serving.application-resources": [
+            "oryx_tpu_torch.serving.resources.common",
+            "oryx_tpu_torch.serving.resources.als",
+        ],
+        "oryx.als.hyperparams.features": f,
+    })
+    topics.maybe_create(bus, "OryxUpdate", partitions=1)
+    topics.maybe_create(bus, "OryxInput", partitions=1)
+    x_mat = rng.standard_normal((8, f)).astype(np.float32)
+    y_mat = rng.standard_normal((n, f)).astype(np.float32)
+    art = ModelArtifact(app="als", tensors={"X": x_mat, "Y": y_mat})
+    art.set_extension("features", str(f))
+    art.set_extension("implicit", "true")
+    art.set_extension("XIDs", [f"u{j}" for j in range(8)])
+    art.set_extension("YIDs", [f"i{j}" for j in range(n)])
+    get_broker(bus).send("OryxUpdate", "MODEL", art.to_string())
+
+    manager = ALSServingModelManager(cfg, device="cpu")
+    assert manager.score_mode == mode
+    serving = ServingLayer(cfg, model_manager=manager)
+    serving.start()
+    front = None
+    try:
+        base = f"http://127.0.0.1:{serving.port}"
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            try:
+                with urllib.request.urlopen(f"{base}/ready", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except Exception:
+                pass
+            time.sleep(0.1)
+        assert manager.model is not None and manager.model.score_mode == mode
+
+        def exact_top10(uj: int) -> list[str]:
+            scores = y_mat @ x_mat[uj]
+            return [f"i{int(j)}" for j in np.argsort(-scores, kind="stable")[:10]]
+
+        recalls = []
+        for uj in range(8):
+            with urllib.request.urlopen(
+                f"{base}/recommend/u{uj}?howMany=10", timeout=30
+            ) as r:
+                assert r.status == 200
+                got = [p[0] for p in json.loads(r.read())]
+            recalls.append(_recall(got, exact_top10(uj)))
+        assert np.mean(recalls) >= 0.95, (mode, recalls)
+
+        front = FleetFront(
+            load_config(overlay={"oryx.fleet.front.probe-interval-sec": 0.2}),
+            backends=[("r0", "127.0.0.1", serving.port)],
+            port=0,
+        )
+        front.start()
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{front.port}/recommend/u0?howMany=10",
+            timeout=30,
+        ) as r:
+            assert r.status == 200
+            got = [p[0] for p in json.loads(r.read())]
+        assert _recall(got, exact_top10(0)) >= 0.9
+    finally:
+        if front is not None:
+            front.close()
+        serving.close()
+        InProcBroker.reset_all()

@@ -92,6 +92,11 @@ def _relay(tmp_path, name: str = "isolated-root") -> ArtifactRelay:
     return ArtifactRelay(tmp_path / name)
 
 
+def _kmeans_blob(i: str) -> bytes:
+    """The serialized form of a tiny artifact, as a chunk stream assembles it."""
+    return ModelArtifact("kmeans", {"i": i}, {}, {}).to_string().encode()
+
+
 # ---- the relay: the JAX package's contracts ---------------------------------
 
 
@@ -123,6 +128,44 @@ def test_publish_chunks_then_ref_and_reassemble_out_of_order(tmp_path):
     # the full consumer path resolves through the relay too
     art2 = read_artifact_from_update("MODEL-REF", ref)
     assert art2.extensions["k"] == "3"
+
+
+@pytest.mark.parametrize("publisher", ["port", "jax"])
+def test_relay_caches_the_published_npz_as_it_came(tmp_path, publisher):
+    """A chunk stream materializes with its tensors' npz archive byte for
+    byte as the publisher (the port's or the JAX package's serializer)
+    encoded it, with no inflate and deflate on the way, and reads back
+    equal to the artifact, also through the JAX package's reader."""
+    import base64
+    import io
+    import zipfile
+
+    art = _sample_artifact()
+    if publisher == "port":
+        serialized = art.to_string()
+    else:
+        serialized = jartifact.ModelArtifact(
+            art.app, art.extensions, art.content, art.tensors).to_string()
+    npz = base64.b64decode(json.loads(serialized)["tensors_b64"])
+    with zipfile.ZipFile(io.BytesIO(npz)) as z:
+        stored = {i.compress_type for i in z.infolist()}
+    assert stored == {zipfile.ZIP_DEFLATED}
+    assert ModelArtifact.from_string(serialized).tensors["centers"].tobytes() == (
+        art.tensors["centers"].tobytes())
+    prod = _CaptureProducer()
+    ref = str(tmp_path / "model" / f"verbatim-{publisher}")
+    publish_model_ref(prod, serialized, ref, max_message_size=1024)
+    relay = _relay(tmp_path)
+    for k, m in prod.sent:
+        if k == CHUNK_KEY:
+            relay.offer(m)
+    d = Path(relay.resolve(ref))
+    assert (d / "tensors.npz").read_bytes() == npz
+    for loaded in (ModelArtifact.read(d), jartifact.ModelArtifact.read(str(d))):
+        assert (loaded.app, loaded.extensions, loaded.content) == (
+            art.app, art.extensions, art.content)
+        np.testing.assert_array_equal(
+            loaded.tensors["centers"], art.tensors["centers"])
 
 
 def test_local_path_wins_over_cache(tmp_path):
@@ -356,7 +399,7 @@ def test_cache_eviction_is_cross_process_lru_by_mtime(tmp_path, monkeypatch):
     paths = []
     for i in range(5):
         ref = str(tmp_path / f"gen-{i}")
-        relay._materialize(ref, ModelArtifact("kmeans", {"i": str(i)}, {}, {}))
+        relay._materialize(ref, _kmeans_blob(str(i)))
         p = relay._dest(ref)
         os.utime(p, (1000 + i, 1000 + i))  # deterministic LRU order
         paths.append(p)
@@ -369,14 +412,14 @@ def test_pinned_refs_survive_eviction_until_unpinned(tmp_path, monkeypatch):
     monkeypatch.setattr(ArtifactRelay, "MAX_CACHED", 2)
     relay = _relay(tmp_path)
     pinned_ref = str(tmp_path / "gen-0")
-    relay._materialize(pinned_ref, ModelArtifact("kmeans", {"i": "0"}, {}, {}))
+    relay._materialize(pinned_ref, _kmeans_blob("0"))
     os.utime(relay._dest(pinned_ref), (1000, 1000))  # oldest = first victim
     relay.pin(pinned_ref)
     relay.pin(pinned_ref)  # a second holder
     newer = []
     for i in range(1, 5):
         ref = str(tmp_path / f"gen-{i}")
-        relay._materialize(ref, ModelArtifact("kmeans", {"i": str(i)}, {}, {}))
+        relay._materialize(ref, _kmeans_blob(str(i)))
         os.utime(relay._dest(ref), (1000 + i, 1000 + i))
         newer.append(ref)
     relay._evict_cache_dirs(keep=relay._dest(newer[-1]))
@@ -386,7 +429,7 @@ def test_pinned_refs_survive_eviction_until_unpinned(tmp_path, monkeypatch):
         os.utime(relay._dest(pinned_ref), (1000, 1000))
         for i in range(start, start + 3):
             r = str(tmp_path / f"gen-{i}")
-            relay._materialize(r, ModelArtifact("kmeans", {"i": str(i)}, {}, {}))
+            relay._materialize(r, _kmeans_blob(str(i)))
             newer.append(r)
 
     relay.unpin(pinned_ref)

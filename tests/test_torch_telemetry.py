@@ -4,8 +4,8 @@ the SLO burn math, perfstats' dispatch accounting, the flight recorder
 and the debug routes (/debug/flight, /debug/profile) on a ServingApp.
 
 Each contract of the JAX package's own tests (tests/test_perfattr.py,
-tests/test_slo.py, tests/test_perfstats.py, tests/test_flightrec.py) is
-held against the port's objects, and the same inputs go to both packages'
+tests/test_slo.py, tests/test_perfstats.py, tests/test_flightrec.py, their
+fleet cases included) is held against the port's objects, and the same inputs go to both packages'
 objects: classify_idle_gap on seeded random gaps (numpy seed 20240611),
 the SLO trackers on one synthetic counter source under one fake clock,
 PerfStats on one record_dispatch sequence. Tolerance: exact equality
@@ -787,6 +787,125 @@ def test_harvest_packs_a_corpse_ring(tmp_path):
     assert doc["replica"] == "r0" and doc["returncode"] == -9
     assert any(e["kind"] == "generation" for e in doc["events"])
     assert flightrec.harvest(str(tmp_path / "never-existed")) is None
+
+
+class _Dead:
+    returncode = -9
+
+    def poll(self):
+        return -9
+
+
+def test_supervisor_harvests_corpse_flight_dir(tmp_path):
+    """tests/test_flightrec.py's fleet case against the port's supervisor:
+    a corpse's ring is harvested once per death, with its replica id."""
+    from oryx_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    cfg = load_config(overlay={
+        "oryx.fleet.replicas": 1,
+        "oryx.fleet.base-port": 9400,
+        "oryx.fleet.data-dir": str(tmp_path / "fleet"),
+    })
+    sup = FleetSupervisor(cfg)
+    flight_dir = sup.overlays[0]["oryx.monitoring.flight.dir"]
+    assert str(tmp_path / "fleet") in str(flight_dir)
+    child = flightrec.FlightRecorder()
+    child.configure(load_config(overlay={
+        "oryx.monitoring.flight.dir": str(flight_dir),
+        "oryx.fleet.replica.id": "r0",
+    }))
+    child.record(kind="generation", generation=42)
+    sup._spawn = lambda i: _Dead()  # type: ignore[assignment]
+    sup.procs[0] = _Dead()
+    sup._spawned_at[0] = time.monotonic()
+    sup.poll()
+    assert len(sup.harvested) == 1
+    doc = json.load(open(sup.harvested[0], encoding="utf-8"))
+    assert doc["replica"] == "r0" and doc["returncode"] == -9
+    assert any(
+        e["kind"] == "generation" and e.get("replica") == "r0"
+        for e in doc["events"]
+    )
+    # the respawned stub dies at once too: one more harvest, and a corpse
+    # waiting out its restart backoff is never re-harvested per tick
+    sup.poll()
+    sup.poll()
+    sup.poll()
+    assert len(sup.harvested) == 2
+
+
+def test_supervisor_harvests_even_with_restarts_off(tmp_path):
+    """The last-words harvest does not depend on the restart policy: a
+    kill that sticks (restart=false) still harvests, and nothing
+    restarts."""
+    from oryx_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    cfg = load_config(overlay={
+        "oryx.fleet.replicas": 1,
+        "oryx.fleet.base-port": 9401,
+        "oryx.fleet.data-dir": str(tmp_path / "fleet"),
+        "oryx.fleet.supervisor.restart": False,
+    })
+    sup = FleetSupervisor(cfg)
+    child = flightrec.FlightRecorder()
+    child.configure(load_config(overlay={
+        "oryx.monitoring.flight.dir": str(sup.overlays[0]["oryx.monitoring.flight.dir"]),
+    }))
+    child.record(kind="process-start", role="serving", port=9401)
+    spawns: list[int] = []
+    sup._spawn = lambda i: spawns.append(i) or _Dead()  # type: ignore[assignment]
+    sup.procs[0] = _Dead()
+    sup._spawned_at[0] = time.monotonic()
+    sup.poll()
+    assert len(sup.harvested) == 1
+    assert spawns == []
+    assert not sup.crash_looping
+
+
+def test_merge_latency_budgets():
+    """tests/test_perfattr.py's fleet federation case against the port's
+    fleet/observe.py, and the JAX package's merge on the same budgets."""
+    from oryx_tpu.fleet.observe import merge_latency_budgets as jax_merge
+    from oryx_tpu_torch.fleet.observe import merge_latency_budgets
+
+    b1 = {
+        "window_s": 60,
+        "phases": {
+            "device": {"count": 10, "p50_ms": 2.0, "p99_ms": 8.0,
+                       "share": 0.8},
+            "parse": {"count": 10, "p50_ms": 0.5, "p99_ms": 1.0,
+                      "share": 0.2},
+        },
+        "idle_gaps": {"empty_queue": {"seconds": 3.0, "share": 1.0}},
+    }
+    b2 = {
+        "window_s": 60,
+        "phases": {
+            "device": {"count": 30, "p50_ms": 4.0, "p99_ms": 16.0,
+                       "share": 1.0},
+        },
+        "idle_gaps": {
+            "empty_queue": {"seconds": 1.0, "share": 0.5},
+            "host_serialize": {"seconds": 1.0, "share": 0.5},
+        },
+    }
+    merged = merge_latency_budgets([b1, b2, None, "junk"])
+    assert merged == jax_merge([b1, b2, None, "junk"])
+    assert merged["replicas"] == 2
+    dev = merged["phases"]["device"]
+    assert dev["count"] == 40
+    assert dev["p50_ms"] == pytest.approx((10 * 2.0 + 30 * 4.0) / 40)
+    assert dev["p99_ms"] == pytest.approx((10 * 8.0 + 30 * 16.0) / 40)
+    assert merged["phases"]["parse"]["count"] == 10
+    assert sum(
+        p["share"] for p in merged["phases"].values()
+    ) == pytest.approx(1.0, abs=0.01)
+    gaps = merged["idle_gaps"]
+    assert gaps["empty_queue"]["seconds"] == pytest.approx(4.0)
+    assert list(gaps) == ["empty_queue", "host_serialize"]
+    assert merge_latency_budgets([]) == {
+        "window_s": 0.0, "replicas": 0, "phases": {}, "idle_gaps": {},
+    }
 
 
 def test_event_catalog_is_the_jax_packages():
