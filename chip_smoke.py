@@ -16,6 +16,14 @@ Phases, each printing JSON lines:
    merge, torch.topk of the union of the partial lists; timed only, at 100k
    items or more) and the least time the card could take (H100 SXM data
    sheet peaks);
+2a. kernel-shard and kernel-big-view: the serving catalog in 4 row shards
+   (bf16 and int8; B = 512, k = 32): every shard's partial lists, indices
+   rebased to global rows, merged by one topk_merge against its plain
+   version, and the sharded call bit-identical to the unsharded one; the
+   merge's time, plain and library times and bound at that shape. Then a
+   20M x 128 bf16 view (5.12 GB, made on the card from a seeded
+   generator) scored by the partial kernel and the merge, held against
+   the library's f32 product and torch.topk block by block;
 2b. gate: ml/quality.py's evaluate_score_mode_recall on the card at the
    JAX package's standing corpus (100,000 x 50, 256 queries, k = 10) and
    at the serving catalog's width (1M x 50): quantized (the int8 kernels
@@ -34,6 +42,14 @@ Phases, each printing JSON lines:
    score-mode exact, one more burst of the same requests, untimed, runs
    under torch.profiler; its device time by kernel and the share of the
    burst's wall time the card was busy go into the serving line;
+3b. serving-sharded: phase 3's catalog at oryx.serving.api.sync.shard-count
+   2 and 4, in score modes exact and quantized (one serving-shard-run line
+   each): the shards on the card and pitched, the answers of 512 user
+   vectors bit-identical to the unsharded view's, 2,048 concurrent
+   requests (S partial launches and one merge launch a dispatch, counted
+   as in phase 3; recall@10 1.0 against float64), no library top-k or
+   sort among the device kernels of a traced burst, and a dirty row of
+   shard 0 (and its restore) that moves shard 0's bytes alone;
 4. http (the main path as users reach it): in each score mode the port's
    ServingLayer starts from config (mem:// topics created first, the
    default async frontend on an ephemeral port, the classes and resources
@@ -88,6 +104,13 @@ Phases, each printing JSON lines:
    time and calls by op: gather, bmm, cholesky_ex, solve_triangular,
    scatter, other, each beside its bound); then f32 (TF32 off) and bf16
    builds at the 1M warm-up shape (6,000 x 3,700 x 1M), same checks;
+5b. train-mesh and collectives: train_als_tp on a (2, 2) mesh whose four
+   cells share the card, at the 1M shape (50 features, 5 sweeps), against
+   single-device train_als from the same initial Y (factors within the
+   CPU parity test's rtol 2e-3 / atol 2e-4; held-out AUC within 0.005 on
+   the same negatives); then two gloo ranks on the card: a Gram summed
+   across the process boundary over CUDA tensors against the local Gram,
+   a barrier, a host all-gather and a broadcast;
 6. lambda (the loop, at the 1M shape): one file:// bus, the als app's
    classes from config. 1M events on the input topic; a full batch
    generation on the card; the serving layer started on the same topics
@@ -186,8 +209,10 @@ Phases, each printing JSON lines:
    generation). Then the fleet leg (`fleet-burst`, `fleet-kill`,
    `fleet-canary` and `fleet` lines): phases 3-4's 1M x 50 catalog
    published as MODEL-CHUNKs + MODEL-REF on a kafka:// topic of the same
-   broker, `cli fleet --replicas 2 --policy hash` with both replicas on
-   the card (each replica's /ready, the front's /fleet/healthz), 2,048
+   broker, `cli fleet --replicas 2 --policy hash --shards 2` with both
+   replicas on the card, their views row-sharded 2 ways (each replica's
+   /ready, the front's /fleet/healthz, each replica's /healthz shards and
+   the front's oryx_fleet_replica_shards, 2 partial launches a merge), 2,048
    exact /recommend through the front (qps, p50/p99, statuses, recall@10
    1.0 against float64, the split by the front's own count, each
    replica's bf16 and merge launches from /fleet/metrics), each of 32
@@ -200,7 +225,10 @@ Phases, each printing JSON lines:
    canary only and rolled back as a pointer swap (the replicas'
    oryx_fleet_distribution_bytes unchanged), the flight rings reading
    canary-start, quality-alarm, canary-rollback in order, no non-shed
-   5xx. The fleet's launches count toward the kernels line. Then,
+   5xx; then the canary SIGKILLed after the rollback: restarted with the
+   fleet's promoted and vetoed generations, it is readmitted and serves
+   generation 2, never 3 (`fleet-canary-kill` line). The fleet's launches
+   count toward the kernels line. Then,
    in-process on the same broker, the wordcount
    example app over 10,000 lines (/distinct against a plain count) and
    `import-pmml` of a 100 x 20 k-means PMML served on the card (256
@@ -568,6 +596,139 @@ def library_ms(torch, xk, y, k, scales, what: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 2a: the cross-shard merge, and a view past 4 GiB
+# ---------------------------------------------------------------------------
+
+SHARD_CASE = (4, 512, 32)  # shards, B, k over the serving catalog
+BIG_VIEW = (20_000_000, 128, 64, 32)  # items, F, B, k: a 5.12 GB bf16 view
+
+
+def cross_shard_case(torch, np, T) -> dict:
+    """The serving catalog (1M x 50) split in SHARD_CASE's 4 row shards on
+    the card, in both shard types: each shard's partial lists (indices
+    rebased to global rows) stacked and merged by one topk_merge, held
+    against the merge's plain version, and the whole sharded call held
+    bit-identical to the unsharded one; the merge's time at that shape, its
+    plain version's, its bound and the library call's (torch.topk of the
+    union of the lists). Comparison launches: not counted."""
+    from oryx_tpu_torch.ops.als import topk_dot_batch
+    from oryx_tpu_torch.ops.shard_topk import _shard_partials
+    from oryx_tpu_torch.ops.timing import wall_ms
+    from oryx_tpu_torch.ops.transfer import (
+        quantized_device_put, sharded_device_put, staged_device_put,
+    )
+
+    s, b, k = SHARD_CASE
+    rng = np.random.default_rng(SEED + 5)
+    y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
+    xs = torch.from_numpy(rng.standard_normal((b, FEATURES), dtype=np.float32)).cuda()
+    out = {"phase": "kernel-shard", "shards": s, "B": b, "I": N_ITEMS,
+           "F": FEATURES, "k": k}
+    for type_name, quant in (("bfloat16", False), ("int8", True)):
+        sm = sharded_device_put(y, s, dtype=None if quant else torch.bfloat16,
+                                quantize=quant)
+        full = (quantized_device_put(y) if quant
+                else staged_device_put(y, dtype=torch.bfloat16))
+        v1, i1 = topk_dot_batch(xs, sm, k=k)
+        v0, i0 = topk_dot_batch(xs, full, k=k)
+        torch.cuda.synchronize()
+        check(torch.equal(v0, v1) and torch.equal(i0, i1),
+              f"kernel-shard/{type_name}: sharded answers differ from unsharded")
+        xq = T.quantize_queries(xs)[0] if quant else xs.to(torch.bfloat16)
+        kb = T._next_pow2(k)
+        parts = [_shard_partials(xq, sh, sm.plan.lo(j), kb)
+                 for j, sh in enumerate(sm.shards)]
+        pv = torch.cat([p[0] for p in parts])
+        pi = torch.cat([p[1] for p in parts])
+        mv, mi = T.topk_merge(pv, pi, k=k)
+        rmv, rmi = T.topk_merge_reference(pv, pi, k=k)
+        torch.cuda.synchronize()
+        check(torch.equal(mv, rmv) and torch.equal(mi, rmi),
+              f"kernel-shard/{type_name}: merge differs from its plain version")
+        flat = pv.permute(1, 0, 2).reshape(b, -1).contiguous()
+        at = f"kernel-shard/{type_name}"
+        nq0 = len(NOT_QUEUED)
+        row = {
+            "lists": int(pv.shape[0]),
+            "lists_per_shard": [int(p[0].shape[0]) for p in parts],
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: T.topk_merge(pv, pi, k=k), f"{at}/merge"),
+            "wall_ms": wall_ms(torch, lambda: T.topk_merge(pv, pi, k=k)),
+            "plain_ms": time_ms(torch, lambda: T.topk_merge_reference(pv, pi, k=k),
+                                f"{at}/merge_plain", reps=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.topk(flat, k, dim=1),
+                                  f"{at}/merge_library"),
+        }
+        # the merge needs only each list's first k entries
+        row["bound_ms"], row["bound_by"] = bound(
+            8 * pv.shape[0] * b * k + 8 * b * k, 0, type_name)
+        row["not_queued"] = [w.rsplit("/", 1)[1] for w in NOT_QUEUED[nq0:]]
+        out[type_name] = row
+        del sm, full, parts, pv, pi, flat
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_view_case(torch, T) -> dict:
+    """BIG_VIEW: a 20M x 128 bf16 item view (5.12 GB, past the JAX
+    package's 4 GiB chunking threshold) made on the card from a seeded
+    generator, scored by topk_dot_partial + topk_merge in one call, and
+    held, block of query rows by block, against the library's f32 product
+    (TF32 off) and torch.topk over item chunks. Launches: not counted."""
+    from oryx_tpu_torch.ops.transfer import is_pitched
+
+    n, f, b, k = BIG_VIEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    y = torch.randn((n, f), generator=gen, device="cuda", dtype=torch.bfloat16)
+    xs = torch.randn((b, f), generator=gen, device="cuda").to(torch.bfloat16)
+    check(is_pitched(y), "the big view is not pitched")
+    kb = T._next_pow2(k)
+    n_splits, split_len = T.launch_plan(b, y, kb)
+
+    def kernel():
+        pv, pi = T.topk_dot_partial(xs, y, kb=kb, n_splits=n_splits,
+                                    split_len=split_len)
+        return T.topk_merge(pv, pi, k=k)
+
+    v, i = kernel()
+    torch.cuda.synchronize()
+    ref_v, ref_i = [], []
+    chunk = 4_000_000
+    for lo in range(0, b, 16):
+        cv, ci = [], []
+        for c in range(0, n, chunk):
+            s = T._scores(xs[lo:lo + 16], y[c:c + chunk])
+            tv, ti = torch.topk(s, k, dim=1)
+            cv.append(tv)
+            ci.append(ti + c)
+        cv, ci = torch.cat(cv, 1), torch.cat(ci, 1)
+        tv, o = torch.topk(cv, k, dim=1)
+        ref_v.append(tv)
+        ref_i.append(ci.gather(1, o).to(torch.int32))
+    xf = xs.float()
+
+    def true_score(rows, idx):
+        return (xf[rows].double() * y[idx.long()].double()).sum(dim=1)
+
+    agreed = agree(torch, v, i, torch.cat(ref_v), torch.cat(ref_i), true_score,
+                   "bfloat16", f, whole=True)
+    nq0 = len(NOT_QUEUED)
+    out = {"phase": "kernel-big-view", "I": n, "F": f, "B": b, "k": k,
+           "view_bytes": y.nbytes, "splits": n_splits, "split_len": split_len,
+           **agreed,
+           "ms": time_ms(torch, kernel, "big-view/whole", reps=5, warmup=1),
+           "library_ms": time_ms(
+               torch, lambda: torch.topk(torch.matmul(xs, y.T), k, dim=1),
+               "big-view/library", reps=5, warmup=1)}
+    out["bound_ms"], out["bound_by"] = bound(
+        y.nbytes + xs.nbytes + 8 * b * k, 2.0 * b * n * f, "bfloat16")
+    out["not_queued"] = [w.rsplit("/", 1)[1] for w in NOT_QUEUED[nq0:]]
+    del y, xs, v, i
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the score-mode recall gate on the card
 # ---------------------------------------------------------------------------
 
@@ -910,6 +1071,167 @@ def serve_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         }
     finally:
         mgr.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving path over row-sharded views
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4)
+# device kernels of the library's top-k and sorts, which the sharded path
+# must not run
+LIBRARY_SELECT = ("sort", "gathertopk", "sbtopk", "mbtopk")
+
+
+def shard_phase(torch, np, T, path, users, exact_rows) -> dict:
+    """Phase 3's catalog served at oryx.serving.api.sync.shard-count 2 and 4
+    in score modes exact and quantized: the view's shards on the card, the
+    sharded kernel answers bit-identical to the unsharded view's (the same
+    store snapshot, 512 user vectors, k = 32), 2,048 concurrent requests
+    with recall@10 1.0 against float64 and S partial launches and one
+    merge launch a dispatch, no library top-k or sort on the card (one
+    traced burst), and a dirty row of shard 0 that moves shard 0's bytes
+    alone (and its restore). One manager loads the artifact; each run is
+    an ALSServingModel over its state."""
+    from oryx_tpu_torch.apps.als.serving import (
+        ALSServingModel, ALSServingModelManager, SyncConfig,
+    )
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.ops.als import topk_dot_batch
+    from oryx_tpu_torch.ops.transfer import (
+        QuantizedMatrix, ShardedMatrix, is_pitched, quantized_device_put,
+        quantized_scatter_bytes, scatter_transfer_bytes, staged_device_put,
+    )
+    from oryx_tpu_torch.serving.batcher import TopKBatcher
+
+    out = {"phase": "serving-sharded", "items": N_ITEMS, "features": FEATURES,
+           "requests": len(users), "runs": []}
+    launches = {"topk_dot_partial": 0, "topk_merge": 0}
+    by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
+    t0 = time.monotonic()
+    mgr = ALSServingModelManager(load_config())
+    mgr.consume_key_message("MODEL-REF", path)
+    state = mgr.get_model().state
+    mgr.close()
+    out["load_s"] = time.monotonic() - t0
+    mat, _ids, _ver = state.y.snapshot()
+    mat = np.asarray(mat, dtype=np.float32)
+    vecs = [state.x.get(f"u{u}") for u in users]
+    excl = [state.get_known_items(f"u{u}") for u in users]
+    xs = torch.from_numpy(np.stack(vecs[:512])).cuda()
+    row0 = state.y.get("i0").copy()
+    batcher = TopKBatcher.shared()
+    for mode in ("exact", "quantized"):
+        quant = mode == "quantized"
+        full = (quantized_device_put(mat) if quant
+                else staged_device_put(mat, dtype=torch.bfloat16))
+        v0, i0 = topk_dot_batch(xs, full, k=32)
+        for shards in SHARD_COUNTS:
+            model = ALSServingModel(state, sync=SyncConfig(shard_count=shards),
+                                    score_mode=mode)
+            try:
+                t0 = time.monotonic()
+                model.build_views()
+                torch.cuda.synchronize()
+                run = {"mode": mode, "shards": shards,
+                       "view_build_s": time.monotonic() - t0}
+                y_dev = model._device_view[0]
+                check(isinstance(y_dev, ShardedMatrix) and y_dev.n_shards == shards
+                      and y_dev.shape[0] == N_ITEMS,
+                      f"{mode}/{shards}: not a {shards}-shard view")
+                for sh in y_dev.shards:
+                    rows = sh.q if quant else sh
+                    check(rows.device.type == "cuda" and is_pitched(rows)
+                          and isinstance(sh, QuantizedMatrix) == quant,
+                          f"{mode}/{shards}: a shard is not a pitched card view")
+                run["shard_rows"] = [int(sh.shape[0]) for sh in y_dev.shards]
+                v1, i1 = topk_dot_batch(xs, y_dev, k=32)
+                torch.cuda.synchronize()
+                check(torch.equal(v0, v1) and torch.equal(i0, i1),
+                      f"{mode}/{shards}: sharded answers differ from the "
+                      "unsharded view's")
+                run["bit_identical_rows"] = int(xs.shape[0])
+
+                d0 = batcher.dispatches
+                T.reset_launches()  # the main path's window opens
+                results, sent, done, _submit = burst(model, vecs, excl)
+                torch.cuda.synchronize()
+                run_launches = dict(T.LAUNCHES)  # ... and closes
+                run_types = dict(T.PARTIAL_LAUNCHES_BY_TYPE)
+                dispatches = batcher.dispatches - d0
+                check(run_launches["topk_merge"] == dispatches and
+                      run_launches["topk_dot_partial"] == shards * dispatches,
+                      f"{mode}/{shards}: launches {run_launches} for "
+                      f"{dispatches} dispatches")
+                for name in launches:
+                    launches[name] += run_launches[name]
+                for name in by_type:
+                    by_type[name] += run_types[name]
+                hits = 0
+                for res, want, ex in zip(results, exact_rows, excl):
+                    ids = [i for i, _ in res]
+                    check(len(ids) == HOW_MANY and not set(ids) & ex,
+                          f"{mode}/{shards}: a short answer or a known item")
+                    hits += len(set(ids) & {f"i{int(r)}" for r in want})
+                wall = max(done) - min(sent)
+                lat = sorted((d - s) * 1e3 for d, s in zip(done, sent))
+                run.update({
+                    "dispatches": dispatches, "launches": run_launches,
+                    "launches_per_dispatch": {
+                        k: v / dispatches for k, v in run_launches.items()},
+                    "recall_at_10": hits / (HOW_MANY * len(results)),
+                    "qps": len(results) / wall, "p50_ms": quantile(lat, 0.5),
+                    "p99_ms": quantile(lat, 0.99),
+                })
+                check(run["recall_at_10"] == 1.0,
+                      f"{mode}/{shards}: recall@10 {run['recall_at_10']}")
+
+                acts = [torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    burst(model, vecs[:256], excl[:256])
+                    torch.cuda.synchronize()
+                names = [ev.key for ev in prof.key_averages()
+                         if ev.self_device_time_total > 0]
+                library = [nm for nm in names if any(
+                    w in nm.lower().replace("_", "") for w in LIBRARY_SELECT)]
+                run["device_kernels"] = sorted(set(names))[:12]
+                check(names and not library,
+                      f"{mode}/{shards}: library selection on the card: {library}")
+
+                # a dirty row of shard 0 (global row 0), then its restore
+                probe = vecs[0]
+                deltas = []
+                for vec in (10.0 * probe, row0):
+                    old = list(model._device_view[0].shards)
+                    state.y.set("i0", np.asarray(vec, dtype=np.float32))
+                    target = state.y.get_version()
+                    t0 = time.monotonic()
+                    while model.served_version() != target:
+                        check(time.monotonic() - t0 < 60,
+                              f"{mode}/{shards}: the delta never served")
+                        model.top_n(probe, HOW_MANY)
+                        time.sleep(0.01)
+                    lr = model.last_resync
+                    new = model._device_view[0]
+                    per_row = (quantized_scatter_bytes(1, FEATURES) if quant
+                               else scatter_transfer_bytes(1, 2, FEATURES))
+                    check(lr["kind"] == "delta"
+                          and lr["shard_bytes"] == {0: per_row}
+                          and new.shards[0] is not old[0]
+                          and all(new.shards[j] is old[j]
+                                  for j in range(1, shards)),
+                          f"{mode}/{shards}: the delta moved {lr}")
+                    deltas.append({"shard_bytes": lr["shard_bytes"],
+                                   "seconds": lr["seconds"]})
+                run["delta"] = deltas
+                out["runs"].append(run)
+                emit({"phase": "serving-shard-run", **run})
+            finally:
+                model.close()
+        del full
+        torch.cuda.empty_cache()
+    out["launches"], out["partial_launches_by_type"] = launches, by_type
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1708,6 +2030,182 @@ def train_phase(torch, shape=TRAIN_SHAPE, small=SMALL_SHAPE,
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the multi-device trainer and the collectives on one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2)  # (data, model) cells, all on the one card
+# tests/test_torch_als_tp.py's tolerance, at its sweep count: the sums run
+# in another order, and each sweep carries the last one's rounding on (at
+# 10 sweeps on an H100, one factor of 299,900 lay 2.33e-4 from the
+# single-device one, past the 2.22e-4 allowed)
+MESH_TOL = {"rtol": 2e-3, "atol": 2e-4}
+MESH_SWEEPS = 5
+MESH_AUC_GAP = 0.005
+# At the batch layer's depth (TRAIN_HP["iterations"]) the TP trainer is
+# held to a float64 run from the same Y (als_probe.f64_reference): at most
+# twice as far from it as the single-device trainer. Rounding grows with
+# the sweeps at lambda 0.01 for both trainers alike, and either may lie
+# nearer (als_probe tp on an H100: at 10 sweeps TP lay 0.52-0.59x as far
+# from float64 as single-device did, the two 5.1e-4 apart; at 20 sweeps
+# 1.2e-2 apart, 0.67-1.13x; 1.13x at 600 x 370 x 20,000 on a CPU).
+MESH_WITNESS_RATIO = 2.0
+
+
+def mesh_train_phase(torch, np, shape=SMALL_SHAPE, device="cuda") -> dict:
+    """train_als_tp on a (2, 2) mesh over the card at the 1M shape, 50
+    features, MESH_SWEEPS sweeps, against single-device train_als from the
+    same resume_y: the factors within MESH_TOL (the CPU parity test's
+    tolerance at its sweep count) and the held-out AUC within
+    MESH_AUC_GAP. Then both at the batch layer's 10 sweeps beside a
+    float64 run: the TP factors at most MESH_WITNESS_RATIO times as far
+    from it as the single-device ones, and the AUC within MESH_AUC_GAP."""
+    from oryx_tpu_torch.ml.quality import holdout_auc
+    from oryx_tpu_torch.ml.synth import synthesize_interactions
+    from oryx_tpu_torch.ops.als import aggregate_interactions, train_als, train_als_tp
+    from oryx_tpu_torch.ops.als_probe import f64_reference
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    n_u, n_i, nnz = shape
+    k = TRAIN_HP["features"]
+    users, items, values = synthesize_interactions(n_u, n_i, nnz,
+                                                   seed=TRAIN_HP["seed"])
+    rng = np.random.default_rng(TRAIN_HP["seed"] + 1_000_003)
+    test_mask = rng.random(nnz) < TRAIN_HP["holdout_p"]
+    tr = ~test_mask
+    data = aggregate_interactions(users[tr], items[tr], values[tr], implicit=True)
+    y0 = (np.random.default_rng(SEED + 7).standard_normal((data.n_items, k))
+          * 0.1 + 1 / np.sqrt(k)).astype(np.float32)
+    kw = dict(features=k, lam=TRAIN_HP["lam"], alpha=TRAIN_HP["alpha"],
+              iterations=MESH_SWEEPS, implicit=True, resume_y=y0)
+    mesh = make_mesh(MeshSpec(*MESH_SHAPE), [torch.device(device)] * 4)
+    one_t, tp_t = {}, {}
+    one = train_als(data, device=device, timings=one_t, **kw)
+    tp = train_als_tp(data, mesh, timings=tp_t, **kw)
+    # both models scored on the same users and the same sampled negatives
+    # (auc_mean_per_user draws them from RandomManager.get_random)
+    from oryx_tpu_torch.common.rng import RandomManager
+
+    def aucs(models):
+        auc, draw = {}, RandomManager.get_random
+        try:
+            for name, model in models:
+                RandomManager.get_random = classmethod(
+                    lambda cls: np.random.default_rng(SEED + 12))
+                auc[name] = float(holdout_auc(
+                    model, users, items, test_mask,
+                    np.random.default_rng(TRAIN_HP["seed"] + 11)))
+        finally:
+            RandomManager.get_random = draw
+        return auc
+
+    auc = aucs((("single", one), ("tp", tp)))
+    dx, dy = np.abs(tp.x - one.x), np.abs(tp.y - one.y)
+    out = {"phase": "train-mesh", "mesh": list(MESH_SHAPE),
+           "shape": {"users": n_u, "items": n_i, "interactions": nnz,
+                     "features": k, "sweeps": MESH_SWEEPS},
+           "single_train_s": one_t["train_s"], "tp_train_s": tp_t["train_s"],
+           "tp_lists_s": tp_t["lists_s"],
+           "max_abs_dx": float(dx.max()), "max_abs_dy": float(dy.max()),
+           "auc": auc, "tol": MESH_TOL}
+    np.testing.assert_allclose(tp.x, one.x, **MESH_TOL)
+    np.testing.assert_allclose(tp.y, one.y, **MESH_TOL)
+    check(abs(auc["tp"] - auc["single"]) <= MESH_AUC_GAP,
+          f"tensor-parallel AUC {auc['tp']} vs single-device {auc['single']}")
+    check(auc["tp"] >= MIN_AUC, f"tensor-parallel AUC {auc['tp']} < {MIN_AUC}")
+
+    deep = dict(kw, iterations=TRAIN_HP["iterations"])
+    one, tp = train_als(data, device=device, **deep), train_als_tp(data, mesh, **deep)
+    t0 = time.monotonic()
+    x64, y64, f64_failed = f64_reference(
+        data, y0, lam=TRAIN_HP["lam"], alpha=TRAIN_HP["alpha"],
+        iterations=TRAIN_HP["iterations"], device=device)
+    dist = {name: max(float(np.abs(m.x - x64).max()), float(np.abs(m.y - y64).max()))
+            for name, m in (("single", one), ("tp", tp))}
+    auc = aucs((("single", one), ("tp", tp)))
+    out["deep"] = {
+        "sweeps": TRAIN_HP["iterations"], "f64_s": time.monotonic() - t0,
+        "f64_failed_rows": f64_failed, "max_abs_d_to_f64": dist,
+        "max_abs_d_tp_single": max(float(np.abs(tp.x - one.x).max()),
+                                   float(np.abs(tp.y - one.y).max())),
+        "ratio": MESH_WITNESS_RATIO, "auc": auc}
+    check(f64_failed == 0, f"{f64_failed} rows failed in float64")
+    check(dist["tp"] <= MESH_WITNESS_RATIO * dist["single"],
+          f"TP factors {dist['tp']} from float64, single-device {dist['single']}")
+    check(abs(auc["tp"] - auc["single"]) <= MESH_AUC_GAP,
+          f"10-sweep TP AUC {auc['tp']} vs single-device {auc['single']}")
+    return out
+
+
+COLLECTIVES = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from oryx_tpu_torch.common.config import load_config
+from oryx_tpu_torch.ops.vector import gram
+from oryx_tpu_torch.parallel.distributed import (
+    barrier, global_mesh, host_allgather, host_broadcast_bytes,
+    init_distributed, shutdown_distributed)
+from oryx_tpu_torch.parallel.mesh import DATA_AXIS, MeshSpec, split_rows
+
+rank, port = int(sys.argv[2]), sys.argv[3]
+assert init_distributed(load_config(overlay={
+    "oryx.compute.distributed.coordinator-address": f"localhost:{port}",
+    "oryx.compute.distributed.num-processes": 2,
+    "oryx.compute.distributed.process-id": rank}))
+card = torch.device("cuda:0")
+mesh = global_mesh(MeshSpec(data=2, model=2), [card, card])
+host = torch.from_numpy(np.random.default_rng(3).standard_normal(
+    (4096, 50)).astype(np.float32))
+blocks = split_rows(host.to(card), mesh, DATA_AXIS)
+g = mesh.psum({c: gram(blocks.block(*c)) for c in mesh.cells()}, DATA_AXIS)
+want = gram(host.to(card))
+for c in mesh.cells():
+    assert g[c].device == card
+    err = (g[c] - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item(), err
+barrier("smoke")
+assert host_allgather(np.asarray([rank, 7])).tolist() == [[0, 7], [1, 7]]
+assert host_broadcast_bytes(b"from-0" if rank == 0 else None, 0) == b"from-0"
+shutdown_distributed()
+print("COLLECTIVES_OK", rank, err, flush=True)
+"""
+
+
+def collectives_phase(torch) -> dict:
+    """Two ranks sharing the card (so gloo: NCCL takes one rank per card):
+    a Gram sum across the process boundary over CUDA tensors against the
+    exact local Gram, a barrier, a host all-gather and a broadcast."""
+    from oryx_tpu_torch.common.executil import free_port_run
+    from oryx_tpu_torch.parallel.distributed import default_backend
+
+    repo = str(Path(__file__).resolve().parent)
+    port = free_port_run(1)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", COLLECTIVES, repo, str(r), str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"COLLECTIVES_OK {r}" in text,
+              f"collectives rank {r} exited {p.returncode}: {text[-2000:]}")
+    errs = [float(t.split(f"COLLECTIVES_OK {r} ")[1].split()[0])
+            for r, t in enumerate(outs)]
+    return {"phase": "collectives", "ranks": 2, "backend": default_backend(2),
+            "devices": "cuda:0 shared", "gram_max_abs_err": errs,
+            "seconds": time.monotonic() - t0}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the lambda loop (batch -> serving -> speed -> batch) on one bus
 # ---------------------------------------------------------------------------
 
@@ -2269,6 +2767,7 @@ def plain_wordcount(lines: list) -> dict:
 # -- phase 10's fleet leg: `cli fleet` over card replicas at 1M x 50 ---------
 
 FLEET_REPLICAS = 2
+FLEET_SHARDS = 2  # the exact fleet's device-view shards per replica
 FLEET_PROBE_S = 0.5  # the front's /healthz probe interval in this leg
 FLEET_CLIENTS = 2  # in-process client threads behind the kill and canary legs
 FLEET_CANARY = {  # the canary leg's replica and controller settings
@@ -2440,6 +2939,16 @@ def front_answers(port: int) -> dict:
     return {r: float(v) for r, v in pat.findall(body.decode())}
 
 
+def front_gauge(port: int, name: str) -> dict:
+    """{replica: value} of one per-replica series on the front's own
+    /metrics."""
+    import re
+
+    _, body = http_get(port, "/metrics")
+    pat = re.compile(name + r'\{replica="([^"]*)"\} (\S+)')
+    return {r: float(v) for r, v in pat.findall(body.decode())}
+
+
 def fleet_status(port: int) -> dict:
     status, body = http_get(port, "/fleet/status")
     check(status == 200, f"/fleet/status answered {status}")
@@ -2555,14 +3064,15 @@ def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
         }.items()) + "\n")
         return conf
 
-    def start_fleet(name: str, extra: dict) -> tuple:
+    def start_fleet(name: str, extra: dict, shards: int = 1) -> tuple:
         """Start `cli fleet`; (process, {replica: seconds to /ready},
         seconds to /fleet/healthz 200)."""
         before = compute_apps() if cuda else []
         t0 = time.monotonic()
         p = start(name, "fleet", "--app", "als", "--conf",
                   str(fleet_conf(name, extra)), "--replicas", str(FLEET_REPLICAS),
-                  "--policy", "hash", "--front-port", str(front_port))
+                  "--policy", "hash", "--front-port", str(front_port),
+                  "--shards", str(shards))
         front_s = wait_for(f"{name}: /fleet/healthz",
                            lambda: _status(front_port, "/fleet/healthz") == 200, alive)
         ready = {}
@@ -2576,9 +3086,21 @@ def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
                   f"{name}: replicas not on the card: {before} -> {after}")
         return p, ready, front_s
 
-    # 1. the exact fleet: start, timed burst, stickiness, kill
-    p, ready, front_s = start_fleet("fleet-exact", {})
-    line = {"ready_s": ready, "front_healthz_s": front_s}
+    # 1. the exact fleet, its views row-sharded: start, timed burst,
+    # stickiness, kill
+    p, ready, front_s = start_fleet("fleet-exact", {}, shards=FLEET_SHARDS)
+    line = {"ready_s": ready, "front_healthz_s": front_s, "shards": FLEET_SHARDS}
+    line["replica_healthz_shards"] = {
+        f"r{i}": json.loads(http_get(base_port + i, "/healthz")[1]).get("shards")
+        for i in range(FLEET_REPLICAS)}
+    line["front_replica_shards"] = front_gauge(
+        front_port, "oryx_fleet_replica_shards")
+    check(line["replica_healthz_shards"] == {
+        f"r{i}": FLEET_SHARDS for i in range(FLEET_REPLICAS)}
+          and line["front_replica_shards"] == {
+              f"r{i}": float(FLEET_SHARDS) for i in range(FLEET_REPLICAS)},
+          f"shards: /healthz {line['replica_healthz_shards']}, front "
+          f"{line['front_replica_shards']}")
     answered0 = front_answers(front_port)
     rows = http_burst(front_port, paths)
     answered = front_answers(front_port)
@@ -2607,10 +3129,13 @@ def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
     check(all(split.get(f"r{i}", 0) > 0 for i in range(FLEET_REPLICAS))
           and split.get("none", 0) == 0, f"fleet split {split}")
     if cuda:
+        # a sharded dispatch: a partial launch per shard, one merge
         check(all(fm.get(f"r{i}", {}).get("by_type", {}).get("bfloat16", 0) > 0
                   and fm[f"r{i}"]["launches"]["topk_merge"] > 0
+                  and fm[f"r{i}"]["launches"]["topk_dot_partial"]
+                  == FLEET_SHARDS * fm[f"r{i}"]["launches"]["topk_merge"]
                   for i in range(FLEET_REPLICAS)),
-              f"a replica launched no bf16 or merge kernel: {fm}")
+              f"a replica's launches are not {FLEET_SHARDS} partials a merge: {fm}")
     exact_fm = fm
 
     # hash stickiness: each user, sent twice, answered twice by the
@@ -2739,16 +3264,78 @@ def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
         check(all(fm.get(f"r{i}", {}).get("by_type", {}).get("int8", 0) > 0
                   for i in range(FLEET_REPLICAS)),
               f"a canary-fleet replica launched no int8 kernel: {fm}")
+
+    # the canary SIGKILLed after the rollback: restarted with the fleet's
+    # decisions, it replays the topic and serves generation 2, never 3
+    traffic = FleetTraffic(front_port, paths)
+    traffic.go.set()
+    time.sleep(1.0)
+    os.kill(replica_pid(p.pid, "r0"), signal.SIGKILL)
+    t_kill = time.monotonic()
+    eject_s = wait_for("the killed canary's ejection",
+                       lambda: not fleet_status(front_port)["r0"]["routable"],
+                       alive, every=0.02)
+    readmit_s = eject_s + wait_for(
+        "the restarted canary's readmission",
+        lambda: fleet_status(front_port)["r0"]["routable"], alive, every=0.02)
+    wait_for("the restarted canary's /ready",
+             lambda: _status(base_port, "/ready") == 200, alive)
+    ready_again_s = time.monotonic() - t_kill
+    # it is ready at generation 1 and replays on: 2 (the promoted one),
+    # then 3, which it must refuse. Served generations are polled until it
+    # serves 2 with its update topic read to the end, then for as long
+    # again as generation 2 took to arrive (an adopted 3 would be served
+    # within that); generation 3 must never be served.
+    served = []
+
+    def serving(gen: int) -> bool:
+        hz = json.loads(http_get(base_port, "/healthz")[1])
+        g = hz.get("model_generation")
+        if not served or served[-1] != g:
+            served.append(g)
+        check(g != 3, f"the restarted canary served vetoed generation 3: {hz}")
+        return g == gen and hz.get("update_lag") == 0
+
+    to_gen2_s = wait_for("the restarted canary serving generation 2",
+                         lambda: serving(2), alive, every=0.25)
+    t_watch = time.monotonic()
+    while time.monotonic() - t_watch < max(5.0, to_gen2_s):
+        alive("the restarted canary's watch")
+        serving(2)
+        time.sleep(0.25)
+    counts = traffic.close()
+    hz = json.loads(http_get(base_port, "/healthz")[1])
+    gate = hz.get("model_gate") or {}
+    kill = {"replica": "r0", "eject_s": eject_s, "readmit_s": readmit_s,
+            "ready_again_s": ready_again_s,
+            "ready_to_generation_2_s": to_gen2_s,
+            "watched_s": time.monotonic() - t_watch,
+            "served_generations": served, "answers": counts,
+            "model_generation": hz.get("model_generation"), "model_gate": gate}
+    line["kill_after_rollback"] = kill
+    emit({"phase": "fleet-canary-kill", **kill})
+    check(hz.get("model_generation") == 2 and 3 not in gate.get("generations", [3])
+          and 3 in gate.get("vetoed", []),
+          f"the restarted canary serves {hz.get('model_generation')}, gate {gate}")
+    check(counts["non_shed_5xx"] == 0 and counts["client_error"] == 0
+          and counts["other"] == 0 and counts["ok"] > 0,
+          f"answers through the kill after the rollback: {counts}")
+    fm_kill = fleet_metrics(front_port)
     stop("fleet-canary")
     launches = {"topk_dot_partial": 0, "topk_merge": 0}
     by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
-    for fmr in (exact_fm, fm):
+    # the restarted canary is a process of its own, with counts of its own
+    restarted = {"r0": fm_kill["r0"]} if "r0" in fm_kill else {}
+    for fmr in (exact_fm, fm, restarted):
         for v in fmr.values():
             for k in launches:
                 launches[k] += v["launches"][k]
             for k in by_type:
                 by_type[k] += v["by_type"][k]
     out["launches"], out["partial_launches_by_type"] = launches, by_type
+    # every merge of the sharded exact fleet merged its replica's shards
+    out["sharded_merges"] = sum(v["launches"]["topk_merge"]
+                                for v in exact_fm.values())
     out["seconds"] = time.monotonic() - t_leg
     return out
 
@@ -3106,7 +3693,8 @@ def kafka_phase(np, root: Path, device="cuda", shape=KAFKA_SHAPE,
                           device=device, shape=fleet_shape, burst=burst)
         emit(fleet)
         out["fleet"] = {k: fleet[k] for k in ("seconds", "launches",
-                                               "partial_launches_by_type")}
+                                               "partial_launches_by_type",
+                                               "sharded_merges")}
         for k in launches:
             launches[k] += fleet["launches"][k]
         for k in by_type:
@@ -4203,7 +4791,11 @@ def main() -> int:
 
     t0 = time.monotonic()
     lines, at_serving, at_single, at_seq = kernel_phase(torch, T)
-    emit({"phase": "kernels-done", "checks": len(lines),
+    cross = cross_shard_case(torch, np, T)
+    emit(cross)
+    big_view = big_view_case(torch, T)
+    emit(big_view)
+    emit({"phase": "kernels-done", "checks": len(lines) + 3,
           "seconds": time.monotonic() - t0})
 
     # every artifact the relay assembles lands inside the checkout
@@ -4231,6 +4823,11 @@ def main() -> int:
             serving[mode] = serve_mode(torch, np, T, mode, path, model_data,
                                        users, exact_rows)
             emit(serving[mode])
+        t1 = time.monotonic()
+        sharded = shard_phase(torch, np, T, path, users, exact_rows)
+        sharded["seconds"] = time.monotonic() - t1
+        emit(sharded)
+        serving["sharded"] = sharded
         emit({"phase": "serving-done", "seconds": time.monotonic() - t0})
         t0 = time.monotonic()
         # the shared batcher must still be open: a closed one stays closed
@@ -4254,6 +4851,12 @@ def main() -> int:
     trained["seconds"] = time.monotonic() - t0
     emit(trained)
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    meshed = mesh_train_phase(torch, np)
+    meshed["seconds"] = time.monotonic() - t0
+    emit(meshed)
+    torch.cuda.empty_cache()
+    emit(collectives_phase(torch))
 
     t0 = time.monotonic()
     root = Path(__file__).resolve().parent / "build" / "smoke-lambda"
@@ -4396,6 +4999,19 @@ def main() -> int:
                                     whole_call_ms="whole",
                                     whole_call_library_ms="library")},
             "seq": seq_case("merge"),
+            # the merge across a sharded view's shards (phase 2a's shape;
+            # launches in phase 3b and in the sharded fleet's replicas)
+            "cross_shard": {
+                "S": cross["shards"], "B": cross["B"], "k": cross["k"],
+                "lists": cross["bfloat16"]["lists"],
+                "launches": (sharded["launches"]["topk_merge"]
+                             + serving["kafka"]["fleet"]["sharded_merges"]),
+                "launches_in_phase_3b": sharded["launches"]["topk_merge"],
+                **{key: cross["bfloat16"][key] for key in (
+                    "ms", "wall_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "int8_ms": cross["int8"]["ms"],
+            },
             "checked": True,
         },
     ]

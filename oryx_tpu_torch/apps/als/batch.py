@@ -13,8 +13,10 @@ train/test by time instead of randomly (ALSUpdate.java:325-342).
 Factors come back to the host as numpy float32 before the artifact is
 built, so the artifact is the JAX package's, byte for byte, with the
 training profile (``qualityProfile``, common/qualitystats.py) the serving
-and speed tiers measure drift against. Not ported: multi-device training
-(ROADMAP queue 1 item 11).
+and speed tiers measure drift against. Training runs on a mesh when one
+is given or configured (``oryx.compute.mesh.*``, parallel/distributed.py
+``mesh_from_config``), and row-sharded over ``oryx.batch.train.shards``
+cards (``_shard_mesh``).
 """
 
 from __future__ import annotations
@@ -55,11 +57,17 @@ log = logging.getLogger(__name__)
 
 
 class ALSUpdate(MLUpdate):
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh=None):
         super().__init__(config)
         self.als = ALSConfig.from_config(config)
         # the card, unless the caller names the CPU (the tests do)
         self.device = resolve_device(device)
+        if mesh is None:
+            from oryx_tpu_torch.parallel.distributed import mesh_from_config
+
+            # None on one device with no oryx.compute.mesh.* shape
+            mesh = mesh_from_config(config, device=self.device)
+        self.mesh = mesh
         # incremental generations: persistent aggregate snapshot + warm
         # starts (docs/operations.md "Incremental generations & warm start")
         self.data_dir = config.get_string("oryx.batch.storage.data-dir", None)
@@ -69,8 +77,8 @@ class ALSUpdate(MLUpdate):
             "oryx.batch.train.min-iterations", 2
         )
         self.train_check_every = config.get_int("oryx.batch.train.check-every", 2)
-        # factor sharding over that many devices (ops/als.py train_als
-        # shard_mesh; multi-device training is ROADMAP queue 1 item 11)
+        # > 1 trains the bucketed trainer with the item-factor table
+        # row-sharded over that many cards (ops/als.py train_als shard_mesh)
         self.train_shards = config.get_int("oryx.batch.train.shards", 1)
         self.max_drift_fraction = config.get_float(
             "oryx.batch.storage.incremental.max-drift-fraction", 0.5
@@ -311,6 +319,7 @@ class ALSUpdate(MLUpdate):
         )
         snap_thread.start()
         try:
+            shard_mesh = self._shard_mesh()
             model, sweeps = train_als_warm(
                 agg,
                 features=features,
@@ -323,7 +332,10 @@ class ALSUpdate(MLUpdate):
                 tol=self.train_tol if resume_y is not None else 0.0,
                 min_iterations=self.train_min_iterations,
                 check_every=self.train_check_every,
-                shard_mesh=self._shard_mesh(),
+                # shards (when configured and applicable) replace the
+                # configured mesh for the build
+                mesh=None if shard_mesh is not None else self.training_mesh(),
+                shard_mesh=shard_mesh,
                 device=self.device,
             )
         finally:
@@ -476,18 +488,28 @@ class ALSUpdate(MLUpdate):
         )
 
     def _shard_mesh(self):
-        """Device count for row-sharded training, or None to train on one
-        device. The shard count clamps to the cards that exist, so a
-        2-shard config on a one-card host (or on the CPU) trains unsharded
-        instead of failing the build; more than one card raises in
-        train_als until multi-device training is ported (ROADMAP queue 1
-        item 11)."""
-        if self.train_shards <= 1 or self.device.type != "cuda":
-            return None
-        import torch
+        """Model-axis mesh for row-sharded bucketed training, or None.
 
-        n = min(self.train_shards, torch.cuda.device_count())
-        return n if n > 1 else None
+        An explicit tensor-parallel training mesh (model axis > 1: the
+        operator already chose a factor layout) wins; otherwise
+        ``oryx.batch.train.shards > 1`` replaces the configured
+        data-parallel mesh for the build. The shard count clamps to the
+        devices that exist (``shardspec.local_devices`` of the update's
+        device), so a 2-shard config on a one-card host trains unsharded
+        instead of failing the build."""
+        if self.train_shards <= 1:
+            return None
+        from oryx_tpu_torch.parallel.mesh import MODEL_AXIS, MeshSpec, make_mesh
+        from oryx_tpu_torch.parallel.shardspec import local_devices
+
+        mesh = self.training_mesh()
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+            return None
+        devices = local_devices(self.device)
+        n = min(self.train_shards, len(devices))
+        if n <= 1:
+            return None
+        return make_mesh(MeshSpec(data=1, model=n), devices[:n])
 
     def _aggregate(self, data: Sequence[KeyMessage]):
         users, items, vals, tss = parse_events(data)
@@ -509,6 +531,9 @@ class ALSUpdate(MLUpdate):
         shard_mesh = self._shard_mesh()
         kwargs = dict(
             device=self.device,
+            # shards replace the configured mesh, so the build takes the
+            # row-sharded bucketed trainer
+            mesh=None if shard_mesh is not None else self.training_mesh(),
             features=int(hyperparams["features"]),
             lam=float(hyperparams["lambda"]),
             alpha=float(hyperparams["alpha"]),

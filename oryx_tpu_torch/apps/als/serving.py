@@ -21,8 +21,15 @@ sample-rate``) is offered to the live quality sampler
 (common/qualitystats.py), which rescores it exactly off the request path.
 Every resync reports into the shared ``oryx_device_sync_*`` /
 ``oryx_view_resync_total`` families (serving/viewsync.py) and, with tracing
-on, a ``view.resync`` span. Not ported yet: sharded and chunked views
-(ROADMAP queue 1 item 11).
+on, a ``view.resync`` span.
+
+``oryx.serving.api.sync.shard-count > 1`` row-shards the device view
+(ops/transfer.ShardedMatrix, one card per shard where the host has them):
+each shard scores its own rows and the partial lists merge exactly in one
+``topk_merge`` launch (ops/shard_topk.py); a dirty-row delta scatters into
+its owning shards only, and int8 shards re-quantize their own rows. The
+JAX package's chunked view has no counterpart: it exists for the TPU's
+remote-compile limit (ops/transfer.py).
 """
 
 from __future__ import annotations
@@ -48,20 +55,24 @@ from oryx_tpu_torch.ops.als import compute_updated_xu
 from oryx_tpu_torch.ops.topk import check_features
 from oryx_tpu_torch.ops.transfer import (
     QuantizedMatrix,
+    ShardedMatrix,
     quantize_rows_int8,
     quantized_device_put,
     quantized_scatter_bytes,
     row_capacity,
     scatter_rows,
     scatter_transfer_bytes,
+    sharded_device_put,
     staged_device_put,
     to_pitched,
 )
+from oryx_tpu_torch.parallel.shardspec import RowShards
 from oryx_tpu_torch.serving.app import chain_future, configure_post_pool, post_pool
 from oryx_tpu_torch.serving.batcher import TopKBatcher
 from oryx_tpu_torch.serving.viewsync import (
     extend_view_ids,
     note_sync_bytes,
+    set_shard_rows,
     view_sync_metrics,
 )
 
@@ -110,11 +121,19 @@ class SyncConfig:
       scored.
     max_delta_fraction: a dirty set larger than this fraction of the store
       full-resyncs instead.
+    shard_count: > 1 row-shards the device scoring view across that many
+      shards (ops/transfer.ShardedMatrix, one card per shard where the
+      host has them, the card shared otherwise): each shard scores its own
+      rows and the partial lists merge exactly (ops/shard_topk.py), a
+      dirty-row delta scatters into its owning shards only, and int8
+      shards re-quantize their own rows. The plan covers the live rows;
+      appended rows join the last shard.
     """
 
     mode: str = "delta"
     capacity_headroom: float = 0.125
     max_delta_fraction: float = 0.2
+    shard_count: int = 1
 
     @staticmethod
     def from_config(config: Config) -> "SyncConfig":
@@ -135,12 +154,13 @@ class SyncConfig:
             raise ValueError(
                 "oryx.serving.api.sync.max-delta-fraction must be in (0, 1]"
             )
-        if int(g("shard-count", 1)) != 1:
+        shards = int(g("shard-count", 1))
+        if shards < 1:
             raise ValueError(
-                "oryx.serving.api.sync.shard-count > 1: sharded views are "
-                "not ported yet"
+                "oryx.serving.api.sync.shard-count must be >= 1, got "
+                f"{shards}"
             )
-        return SyncConfig(mode, headroom, frac)
+        return SyncConfig(mode, headroom, frac, shards)
 
 
 class _LshPartitions:
@@ -162,6 +182,16 @@ def _normalize_rows(a: torch.Tensor) -> torch.Tensor:
     af = a.float()
     n = torch.clamp(torch.linalg.norm(af, dim=1, keepdim=True), min=1e-12)
     return to_pitched((af / n).to(a.dtype))
+
+
+def _unit_of(y):
+    """The cosine view of a device view: a quantized one normalizes by
+    SCALE alone and shares the int8 rows; a sharded one, shard by shard."""
+    if isinstance(y, ShardedMatrix):
+        return y.map(_unit_of)
+    if isinstance(y, QuantizedMatrix):
+        return y.unit_scaled()
+    return _normalize_rows(y)
 
 
 class ALSServingModel(ServingModel):
@@ -407,8 +437,7 @@ class ALSServingModel(ServingModel):
         """Normalize the device view into the cosine unit view. A quantized
         view normalizes by SCALE alone and shares
         the int8 rows."""
-        unit = y.unit_scaled() if isinstance(y, QuantizedMatrix) else _normalize_rows(y)
-        view = (unit, ids, version, host_mat)
+        view = (_unit_of(y), ids, version, host_mat)
         self._unit_view = view
         return view
 
@@ -437,7 +466,22 @@ class ALSServingModel(ServingModel):
         # kernel takes the row count at run time, so padding would only add
         # rows to score. The f32 host matrix rides along, row-aligned, for
         # the exact candidate re-rank.
-        if quantize:
+        by_shard = None
+        per_row = features * itemsize + (4 if quantize else 0)
+        if self.sync.shard_count > 1:
+            # row shards over the live rows; each lands on its own card
+            # where the host has them
+            y_dev = sharded_device_put(
+                mat, self.sync.shard_count,
+                dtype=None if quantize else torch.bfloat16,
+                quantize=quantize, device=self.device,
+            )
+            set_shard_rows(view_sync_metrics()[4], y_dev.plan, n)
+            by_shard = {
+                s: y_dev.plan.size(s) * per_row
+                for s in range(y_dev.plan.n_shards)
+            }
+        elif quantize:
             y_dev = quantized_device_put(mat, device=self.device)
         else:
             y_dev = staged_device_put(mat, dtype=torch.bfloat16, device=self.device)
@@ -445,22 +489,25 @@ class ALSServingModel(ServingModel):
         self._device_view = view
         if self._unit_view is not None:
             self._build_unit_view(y_dev, ids, version, host)
-        sync_bytes = n * features * itemsize + (n * 4 if quantize else 0)
-        self._note_resync("full", n, sync_bytes, time.monotonic() - t0, version)
+        self._note_resync("full", n, n * per_row, time.monotonic() - t0,
+                          version, by_shard)
         return view
 
     # -- background resync --------------------------------------------------
 
     def _note_resync(self, kind: str, rows: int, n_bytes: int,  # holds _sync_lock
-                     seconds: float, version: int) -> None:
+                     seconds: float, version: int,
+                     by_shard: dict[int, int] | None = None) -> None:
         m_bytes, m_secs, m_total = view_sync_metrics()[:3]
-        note_sync_bytes(m_bytes, n_bytes, None)
+        note_sync_bytes(m_bytes, n_bytes, by_shard)
         m_secs.observe(seconds)
         m_total.inc(kind=kind)
         self.last_resync = {
             "kind": kind, "rows": rows, "bytes": n_bytes,
             "seconds": seconds, "version": version,
         }
+        if by_shard is not None:
+            self.last_resync["shard_bytes"] = dict(by_shard)
         tr = get_tracer()
         if tr.enabled:
             tr.record_interval(
@@ -572,42 +619,71 @@ class ALSServingModel(ServingModel):
         # reader may see a dirty row one version newer in the advisory f32
         # re-rank, never a torn matrix/ids pairing)
         host_mat[rows] = mat_rows
-        # not in place: in-flight coalesced dispatches still score the old
-        # buffer; the old view stays whole until the swap below
-        quantized = isinstance(y_dev, QuantizedMatrix)
+        # One path for both views, an unsharded view being the one-shard
+        # case: dirty rows scatter into their OWNING shards (untouched
+        # shards stay shared with the old view), appended rows join the
+        # last shard, and a sharded view counts each touched shard's bytes
+        # toward its own {shard="sN"} series. Not in place: in-flight
+        # coalesced dispatches still score the old buffers; the old view
+        # stays whole until the swap below.
         features = self.state.features
+        sharded = isinstance(y_dev, ShardedMatrix)
+        plan = (y_dev.plan if sharded else RowShards.plan(n_old, 1)).grown(n_new)
+        y_shards = list(y_dev.shards) if sharded else [y_dev]
+        u_shards = None
+        if uv is not None:
+            u_shards = list(uv[0].shards) if sharded else [uv[0]]
+        quantized = isinstance(y_shards[0], QuantizedMatrix)
         if quantized:
             # quantize the dirty rows ONCE so the unit view can keep
             # SHARING the device view's int8 rows
             q_rows, s_rows = quantize_rows_int8(mat_rows)
-            y_new = QuantizedMatrix(
-                scatter_rows(y_dev.q, rows, q_rows, n_new),
-                scatter_rows(y_dev.scale, rows, s_rows, n_new),
-            )
-            n_bytes = quantized_scatter_bytes(rows.size, features)
-        else:
-            y_new = scatter_rows(y_dev, rows, mat_rows, n_new)
-            n_bytes = scatter_transfer_bytes(rows.size, 2, features)
-        self._device_view = (y_new, ids, delta.version, host_mat)
-        if uv is not None:
+            qn = np.linalg.norm(q_rows.astype(np.float32), axis=1)
+            unit_rows = np.where(
+                qn > 0, 1.0 / np.maximum(qn, 1e-12), 0.0
+            ).astype(np.float32)
+        elif u_shards is not None:
+            norms = np.linalg.norm(mat_rows, axis=1)
+            unit_rows = mat_rows / np.maximum(norms, 1e-12)[:, None]
+        last = plan.n_shards - 1
+        touched = plan.split(rows, np.arange(rows.size))
+        if n_new > n_old and all(s != last for s, _, _ in touched):
+            touched.append((last, np.zeros(0, np.int64), np.zeros(0, np.int64)))
+        by_shard = {}
+        for s, local, sel in touched:
+            n_s = plan.size(s)
             if quantized:
-                qn = np.linalg.norm(q_rows.astype(np.float32), axis=1)
-                unit_scales = np.where(
-                    qn > 0, 1.0 / np.maximum(qn, 1e-12), 0.0
-                ).astype(np.float32)
-                unit_new = QuantizedMatrix(
-                    y_new.q, scatter_rows(uv[0].scale, rows, unit_scales, n_new)
+                y_s = QuantizedMatrix(
+                    scatter_rows(y_shards[s].q, local, q_rows[sel], n_s),
+                    scatter_rows(y_shards[s].scale, local, s_rows[sel], n_s),
                 )
-                n_bytes += scatter_transfer_bytes(rows.size, 4, 1)
+                n_bytes = quantized_scatter_bytes(len(local), features)
             else:
-                norms = np.linalg.norm(mat_rows, axis=1)
-                unit_rows = mat_rows / np.maximum(norms, 1e-12)[:, None]
-                unit_new = scatter_rows(uv[0], rows, unit_rows, n_new)
-                n_bytes += scatter_transfer_bytes(rows.size, 2, features)
-            self._unit_view = (unit_new, ids, delta.version, host_mat)
+                y_s = scatter_rows(y_shards[s], local, mat_rows[sel], n_s)
+                n_bytes = scatter_transfer_bytes(len(local), 2, features)
+            y_shards[s] = y_s
+            if u_shards is not None:
+                if quantized:
+                    u_shards[s] = QuantizedMatrix(y_s.q, scatter_rows(
+                        u_shards[s].scale, local, unit_rows[sel], n_s))
+                    n_bytes += scatter_transfer_bytes(len(local), 4, 1)
+                else:
+                    u_shards[s] = scatter_rows(
+                        u_shards[s], local, unit_rows[sel], n_s)
+                    n_bytes += scatter_transfer_bytes(len(local), 2, features)
+            by_shard[s] = n_bytes
+
+        def whole(shards):
+            return ShardedMatrix(shards, plan) if sharded else shards[0]
+
+        self._device_view = (whole(y_shards), ids, delta.version, host_mat)
+        if u_shards is not None:
+            self._unit_view = (whole(u_shards), ids, delta.version, host_mat)
+        if sharded and n_new > n_old:
+            set_shard_rows(view_sync_metrics()[4], plan, n_new)
         self._note_resync(
-            "delta", int(rows.size), n_bytes, time.monotonic() - t0,
-            delta.version,
+            "delta", int(rows.size), sum(by_shard.values()),
+            time.monotonic() - t0, delta.version, by_shard if sharded else None,
         )
         return True
 

@@ -16,8 +16,10 @@ re-rank. No padding row is ever scored, so the JAX package's pad backstop
 has nothing to do here. The manager builds a new model's view on the update
 listener's thread once enough of it has loaded, and readiness waits for
 it; later drift catches up on the first query that sees it, under the sync
-lock, as in the JAX package. Not ported yet: sharded views (ROADMAP queue 1
-item 11).
+lock, as in the JAX package. ``oryx.serving.api.sync.shard-count > 1``
+row-shards the item view as the ALS view is sharded (ops/transfer.py
+``ShardedMatrix``): the same plan, the same owning-shard deltas, the same
+cross-shard merge on the serve path (ops/shard_topk.py).
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ from oryx_tpu_torch.device import resolve_device
 from oryx_tpu_torch.ops.seq import encode_vectors, gru_from_numpy
 from oryx_tpu_torch.ops.topk import check_features
 from oryx_tpu_torch.ops.transfer import (
+    ShardedMatrix,
     row_capacity,
     scatter_rows,
     scatter_transfer_bytes,
+    sharded_device_put,
     staged_device_put,
 )
 from oryx_tpu_torch.serving.app import chain_future, configure_post_pool, post_pool
@@ -50,6 +54,8 @@ from oryx_tpu_torch.serving.batcher import TopKBatcher
 from oryx_tpu_torch.serving.viewsync import (
     extend_view_ids,
     note_sync_bytes,
+    set_shard_rows,
+    sharded_delta_bytes,
     view_sync_metrics,
 )
 
@@ -102,9 +108,10 @@ class SeqServingModel(ServingModel):
                 return self._device_view
             return self._build_view_full()
 
-    def _note_resync(self, kind: str, n_bytes: int, t0: float) -> None:
+    def _note_resync(self, kind: str, n_bytes: int, t0: float,
+                     by_shard: dict[int, int] | None = None) -> None:
         m_bytes, m_secs, m_total = view_sync_metrics()[:3]
-        note_sync_bytes(m_bytes, n_bytes, None)
+        note_sync_bytes(m_bytes, n_bytes, by_shard)
         m_secs.observe(time.monotonic() - t0)
         m_total.inc(kind=kind)
 
@@ -128,10 +135,19 @@ class SeqServingModel(ServingModel):
         if ids is None:
             return False
         host_mat[delta.rows] = delta.mat
+        # a sharded view routes each dirty row into its owning shard only
         y_new = scatter_rows(y_dev, delta.rows, delta.mat, len(ids))
         self._device_view = (y_new, ids, delta.version, host_mat)
-        self._note_resync(
-            "delta", scatter_transfer_bytes(delta.rows.size, 2, self.state.dim), t0)
+        bytes_of_d = lambda d: scatter_transfer_bytes(d, 2, self.state.dim)  # noqa: E731
+        by_shard = None
+        if isinstance(y_new, ShardedMatrix):
+            n_bytes, by_shard = sharded_delta_bytes(
+                y_new.plan, delta.rows, bytes_of_d)
+            if len(ids) > n_old:
+                set_shard_rows(view_sync_metrics()[4], y_new.plan, len(ids))
+        else:
+            n_bytes = bytes_of_d(delta.rows.size)
+        self._note_resync("delta", n_bytes, t0, by_shard)
         return True
 
     def _build_view_full(self) -> tuple:  # holds _sync_lock
@@ -144,10 +160,20 @@ class SeqServingModel(ServingModel):
         cap = row_capacity(n, self.sync.capacity_headroom)
         host = np.zeros((cap, self.state.dim), dtype=np.float32)
         host[:n] = mat
-        y_dev = staged_device_put(mat, dtype=torch.bfloat16, device=self.device)
+        by_shard = None
+        if self.sync.shard_count > 1:
+            y_dev = sharded_device_put(
+                mat, self.sync.shard_count, dtype=torch.bfloat16,
+                device=self.device,
+            )
+            set_shard_rows(view_sync_metrics()[4], y_dev.plan, n)
+            by_shard = {s: y_dev.plan.size(s) * self.state.dim * 2
+                        for s in range(y_dev.plan.n_shards)}
+        else:
+            y_dev = staged_device_put(mat, dtype=torch.bfloat16, device=self.device)
         view = (y_dev, ids, version, host)
         self._device_view = view
-        self._note_resync("full", n * self.state.dim * 2, t0)
+        self._note_resync("full", n * self.state.dim * 2, t0, by_shard)
         return view
 
     # -- queries -----------------------------------------------------------

@@ -75,7 +75,8 @@ def _parse_args(argv):
     p.add_argument(
         "--shards", type=int, default=None,
         help="fleet: device-view shards per replica (overrides "
-        "oryx.fleet.shards); only 1 until sharded views are ported",
+        "oryx.fleet.shards; oryx.serving.api.sync.shard-count of every "
+        "replica)",
     )
     p.add_argument("--conf", help="user config file (HOCON-like key paths)")
     p.add_argument(
@@ -775,8 +776,9 @@ def cmd_fleet(config: Config, args, raw_argv: list[str]) -> int:
     cpu`` in the config or a ``--set`` puts them on the CPU); this process
     opens no device. SIGTERM/SIGINT stop the front first (stop taking
     traffic), then fan out to the replicas. Dead replicas are restarted
-    with backoff; a crash-looping fleet exits nonzero. A shard count above
-    1 is refused as the serving layer refuses it."""
+    with backoff; a crash-looping fleet exits nonzero. ``--shards N``
+    row-shards every replica's device view N ways (a shard count below 1
+    is refused as the serving layer refuses it)."""
     from oryx_tpu_torch.apps.als.serving import SyncConfig
     from oryx_tpu_torch.fleet import FleetController, FleetFront, FleetSupervisor
 
@@ -791,7 +793,7 @@ def cmd_fleet(config: Config, args, raw_argv: list[str]) -> int:
         overlay["oryx.fleet.shards"] = args.shards
     if overlay:
         config = config.overlay(overlay)
-    # the replicas' own sync validation, run once here: a sharded fleet
+    # the replicas' own sync validation, run once here: a bad shard count
     # fails before any replica starts
     SyncConfig.from_config(config.overlay({
         "oryx.serving.api.sync.shard-count":

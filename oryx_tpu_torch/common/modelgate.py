@@ -34,6 +34,14 @@ Modes (``oryx.serving.model-gate.mode``):
   the topic from earliest and must not hold its bootstrap model
   hostage to a controller that has not probed it yet.
 
+A gate can start from what its fleet already decided:
+``oryx.serving.model-gate.watermark`` arms it at the promoted
+generation and ``oryx.serving.model-gate.vetoed`` lists generations it
+must never adopt. The fleet supervisor passes both to a replica it
+restarts (``fleet/control.py`` ``gate_overlay``), so a replica that died
+after a rollback replays the topic and serves the promoted generation,
+never the vetoed one. (The JAX package's gate starts empty.)
+
 Because a generation id travels on the TRACE stamp that FOLLOWS its
 model on the (single-partition) update topic, the gate buffers each
 MODEL/MODEL-REF until its stamp arrives and judges the pair — one
@@ -131,7 +139,17 @@ class ModelGate:
         self.history_depth = max(
             2, config.get_int("oryx.serving.model-gate.history", 4)
         )
+        # what the fleet already decided, seeded before the update
+        # listener replays the topic: a replica restarted after a rollback
+        # must not re-adopt the vetoed generation, and its hold gate starts
+        # armed at the promoted generation instead of adopting everything
+        watermark = config.get("oryx.serving.model-gate.watermark", None)
+        vetoed = config.get_list("oryx.serving.model-gate.vetoed", [])
         with self._lock:
+            if self.active:
+                if watermark is not None:
+                    self.watermark = int(watermark)
+                self._vetoed.update(int(g) for g in vetoed)
             self._snapshot_locked()
 
     # -- update-listener hook (api._dispatch_update) ------------------------

@@ -26,9 +26,10 @@ happens once per host, measured by
 Every replica is a ``python -m oryx_tpu_torch.cli serving`` process that
 opens the CUDA card itself (``oryx.compute.platform = cpu`` puts it on the
 CPU instead); the front, the supervisor and the controller open no device.
-Sharded replicas (``oryx.fleet.shards > 1``) are config only here: the
-port's serving layer refuses ``sync.shard-count > 1`` until sharded views
-are ported.
+Sharded replicas (``oryx.fleet.shards > 1``, ``cli fleet --shards N``)
+serve row-sharded device views (``oryx.serving.api.sync.shard-count``),
+one card per shard where the host has them; the front checks each
+replica's ``/healthz`` ``shards`` against the fleet's count.
 """
 
 from oryx_tpu_torch.fleet.ring import HashRing

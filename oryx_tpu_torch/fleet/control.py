@@ -150,9 +150,15 @@ class FleetController:
             "oryx.fleet.front.backend-timeout-sec", 60.0
         )
         self._rollout: _Rollout | None = None
-        # generations this controller already rolled back: a canary gate
-        # restart (fresh veto set) must not re-trigger the same rollout
-        self._vetoed: set[int] = set()
+        # what the fleet decided, read by the supervisor's thread when it
+        # restarts a replica (gate_overlay): the generation every hold
+        # gate is armed at or was promoted to, and the generations rolled
+        # back (a canary gate restart must not re-trigger their rollout)
+        self._decided_lock = threading.Lock()
+        self._promoted: int | None = None  # guarded-by: _decided_lock
+        self._vetoed: set[int] = set()  # guarded-by: _decided_lock
+        if supervisor is not None:
+            supervisor.restart_overlay = self.gate_overlay
         self._gave_up_seen: set[str] = set()
         # autoscaler state
         self._cooldown_until = 0.0
@@ -254,6 +260,28 @@ class FleetController:
             return
         self._judge(canary, holds)
 
+    def gate_overlay(self) -> dict:
+        """Model-gate config for a replica the supervisor restarts: the
+        promoted generation (a hold gate starts armed there) and the
+        vetoed generations (never adopted when it replays the update
+        topic). Empty before the controller has decided anything."""
+        with self._decided_lock:
+            out: dict = {}
+            if self._promoted is not None:
+                out["oryx.serving.model-gate.watermark"] = self._promoted
+            if self._vetoed:
+                out["oryx.serving.model-gate.vetoed"] = sorted(self._vetoed)
+            return out
+
+    def _note_promoted(self, generation) -> None:
+        with self._decided_lock:
+            self._promoted = int(generation)
+
+    def vetoed(self) -> set[int]:
+        """The generations this controller rolled back."""
+        with self._decided_lock:
+            return set(self._vetoed)
+
     def _arm_holds(self, holds) -> None:
         """Pin every UNARMED hold gate's watermark to the generation it
         already serves: from then on anything newer parks until this
@@ -268,6 +296,8 @@ class FleetController:
                         "fleet controller: armed %s at generation %s",
                         r.id, r.generation,
                     )
+                    if self._promoted is None:
+                        self._note_promoted(r.generation)
 
     def _canary_generation(self, canary) -> int | None:
         mg = canary.model_gate if isinstance(canary.model_gate, dict) else {}
@@ -283,7 +313,7 @@ class FleetController:
             gen is None
             or incumbent is None
             or gen <= incumbent
-            or gen in self._vetoed
+            or gen in self.vetoed()
         ):
             return
         baseline = 0
@@ -402,6 +432,7 @@ class FleetController:
         if behind:
             return
         self.front.clear_canary()
+        self._note_promoted(ro.generation)
         self._m_canary.inc(outcome="promote")
         get_flightrec().record(
             kind="canary-promote",
@@ -428,7 +459,9 @@ class FleetController:
             self.front.set_canary(self.canary_rid, 0.0)
         else:
             self.front.clear_canary()
-        self._vetoed.add(ro.generation)
+        with self._decided_lock:
+            self._vetoed.add(ro.generation)
+            self._promoted = int(ro.incumbent)
         self._m_canary.inc(outcome="rollback")
         get_flightrec().record(
             kind="canary-rollback",

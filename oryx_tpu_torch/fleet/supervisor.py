@@ -26,6 +26,7 @@ hammering the port forever.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import signal
@@ -62,9 +63,7 @@ def replica_overlays(
     device per shard on multi-card hosts), so the fleet scales replicas
     (processes / failure domains) x shards (devices / device memory).
     The front probes the same number back off /healthz and treats a
-    mis-sharded replica as degraded. The port's serving layer refuses a
-    shard count above 1 (sharded views are not ported yet), so here the
-    dimension is config the overlays carry and the front checks.
+    mis-sharded replica as degraded.
     """
     if n is None:
         n = config.get_int("oryx.fleet.replicas", 2)
@@ -178,6 +177,9 @@ class FleetSupervisor:
         self.env = dict(env if env is not None else os.environ)
         self._stdout = stdout
         self._stderr = stderr
+        # () -> {config key: value} added to every spawned replica's
+        # overlay; the fleet controller wires its gate_overlay here
+        self.restart_overlay = None
         # one lock serializes process-table mutation: poll()'s restart
         # pass, kill()'s chaos signal, and stop()'s teardown all touch
         # procs[i] from different threads, and an unserialized poll could
@@ -228,6 +230,12 @@ class FleetSupervisor:
         cmd = [*prefix, sys.executable, "-m", "oryx_tpu_torch.cli", "serving", *self.argv]
         for k, v in self.overlays[i].items():
             cmd += ["--set", f"{k}={v}"]
+        # what the fleet decided so far (the controller's gate_overlay):
+        # a replica spawned after a rollback never adopts the vetoed
+        # generation when it replays the update topic
+        extra = self.restart_overlay() if self.restart_overlay else {}
+        for k, v in extra.items():
+            cmd += ["--set", f"{k}={json.dumps(v)}"]
         p = subprocess.Popen(
             cmd, env=self.env, stdout=self._stdout, stderr=self._stderr
         )

@@ -12,11 +12,12 @@ model_dir/<timestamp>, and publishes it to the update topic inline
 max message size (MLUpdate.java:212-231), then streams any oversized extras
 via publish_additional_model_data (e.g. ALS factor rows).
 
-Single process, single card: the JAX package's pod branches (the
-process-group candidate search, the winner fetch across hosts) and its
-sub-mesh pool are ROADMAP queue 1 item 11. A config that enables a pod
-(``oryx.compute.distributed.*``) raises ValueError; with no mesh,
-candidates run in threads (``collect_in_parallel``) and share the card.
+One process: the JAX package's pod branches (the process-group
+candidate search, the winner fetch across hosts) and its sub-mesh pool are
+not ported yet (ROADMAP queue 1 item 11, its pod half). A config that enables a pod
+(``oryx.compute.distributed.*``) raises ValueError. An app that trains on a
+mesh sets ``self.mesh`` (``training_mesh``); candidates run in threads
+(``collect_in_parallel``) and share the card and the mesh.
 """
 
 from __future__ import annotations
@@ -201,9 +202,10 @@ class MLUpdate(BatchLayerUpdate):
         regardless, since the window is persisted regardless."""
 
     def training_mesh(self):
-        """The mesh candidate builds run on: always None in the port, which
-        trains on one card (meshes are ROADMAP queue 1 item 11)."""
-        return None
+        """The mesh candidate builds run on (apps that shard training set
+        self.mesh in __init__, from ``oryx.compute.mesh.*``); None trains
+        on one device."""
+        return getattr(self, "mesh", None)
 
     # ---- the harness -----------------------------------------------------
 

@@ -11,9 +11,14 @@ oryx_tpu/ops/als.py).
   ``torch.linalg.solve_triangular``, indexing) on the card, since the JAX
   package reaches no Pallas kernel on this path. Implicit feedback follows
   Hu-Koren-Volinsky confidence weighting (c = 1 + alpha.r), explicit uses
-  ALS-WR lambda.n_u regularization to match MLlib behavior. Single device
-  only: the mesh, row-sharded and tensor-parallel trainers are ROADMAP
-  queue 1 item 11.
+  ALS-WR lambda.n_u regularization to match MLlib behavior. On a mesh
+  (parallel/mesh.py) the same half-steps run cell by cell: data-parallel
+  (``train_als(mesh=)``, rows split over "data", the fixed side gathered),
+  tensor-parallel (``train_als_tp``: X split by user over "data", Y by item
+  over "model", partial normal equations summed across the fixed side's
+  shards) and row-sharded (``train_als(shard_mesh=)``: the bucketed
+  trainer with Y split by row over "model"). ``Mesh.psum`` and
+  ``Mesh.all_gather`` are the JAX package's psum and all-gather.
 - Input preprocessing mirrors ALSUpdate semantics (…/als/ALSUpdate.java:
   348-422): per-day exponential decay of old interactions, zero-threshold
   drop, NaN-as-delete aggregation for implicit (NaN-propagating sum),
@@ -54,7 +59,7 @@ from oryx_tpu_torch.ops.topk import (
     quantize_queries,
     topk_dot_batch_cuda,
 )
-from oryx_tpu_torch.ops.transfer import QuantizedMatrix
+from oryx_tpu_torch.ops.transfer import QuantizedMatrix, ShardedMatrix
 from oryx_tpu_torch.ops.vector import full_f32, gram
 
 log = logging.getLogger(__name__)
@@ -770,11 +775,6 @@ def _finish_model(x, y, n_u: int, n_i: int, data) -> ALSModelArrays:
     return ALSModelArrays(x, y, data.user_ids, data.item_ids)
 
 
-_NOT_PORTED_MESH = (
-    "train_als: {} training is not ported to the PyTorch port yet "
-    "(ROADMAP queue 1 item 11: multi-device)"
-)
-
 
 def train_als(
     data: InteractionData,
@@ -807,15 +807,41 @@ def train_als(
     compile_s is 0.0. Y is rewritten in place sweep by sweep (the JAX
     package's ``donate_y0`` has no counterpart).
 
-    ``mesh`` and ``shard_mesh`` (data-parallel, tensor-parallel and
-    row-sharded training) raise ValueError: multi-device training is
-    ROADMAP queue 1 item 11. Each build records one ``train`` dispatch into
-    common/perfstats.py (``_record_train_dispatch``).
+    ``mesh`` (parallel/mesh.py): a mesh with a "model" axis above 1 trains
+    tensor-parallel (``train_als_tp``), else data-parallel: the padded
+    lists and both factor tables split by row over "data", each cell
+    solving its rows against the gathered fixed side (``_train_dp``).
+    ``shard_mesh`` (mutually exclusive with ``mesh``): the bucketed trainer
+    with the item-factor table split by row over the mesh's "model" axis
+    (``_train_row_sharded``). Mesh cells run on their own devices, and
+    ``device`` is not used. A single-device build records one ``train``
+    dispatch into common/perfstats.py (``_record_train_dispatch``).
     """
+    if mesh is not None and shard_mesh is not None:
+        raise ValueError("train_als: mesh and shard_mesh are mutually exclusive")
     if mesh is not None:
-        raise ValueError(_NOT_PORTED_MESH.format("mesh"))
+        from oryx_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        if mesh.shape[MODEL_AXIS] > 1:
+            return train_als_tp(
+                data, mesh, features=features, lam=lam, alpha=alpha,
+                iterations=iterations, implicit=implicit, cap=cap,
+                block=block, seed_key=seed_key, compute_dtype=compute_dtype,
+                resume_y=resume_y, timings=timings,
+            )
+        return _train_dp(
+            data, mesh, features=features, lam=lam, alpha=alpha,
+            iterations=iterations, implicit=implicit, cap=cap, block=block,
+            seed_key=seed_key, compute_dtype=compute_dtype,
+            resume_y=resume_y, timings=timings,
+        )
     if shard_mesh is not None:
-        raise ValueError(_NOT_PORTED_MESH.format("shard_mesh"))
+        return _train_row_sharded(
+            data, shard_mesh, features=features, lam=lam, alpha=alpha,
+            iterations=iterations, implicit=implicit, cap=cap, block=block,
+            seed_key=seed_key, compute_dtype=compute_dtype,
+            resume_y=resume_y, timings=timings,
+        )
     dev = resolve_device(device)
     n_u, n_i = data.n_users, data.n_items
     if n_u == 0 or n_i == 0 or len(data.values) == 0:
@@ -1109,6 +1135,373 @@ def _row_pad(a: np.ndarray, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# multi-device trainers: the half-steps above, cell by cell over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _init_y(data, features: int, n_rows: int, seed_key, resume_y, mesh):
+    """The item-factor init as one host f32 tensor of ``n_rows`` rows,
+    zero past the live items (phantom rows must not inflate Y'Y): resume_y,
+    else N(1/sqrt(K), 0.1) from ``seed_key`` (a ``torch.Generator``) or the
+    RandomManager's CPU generator. A mesh spanning processes takes process
+    0's draw, so every process starts from the same Y."""
+    n_i = data.n_items
+    y0 = torch.zeros((n_rows, features), dtype=torch.float32)
+    if resume_y is not None:
+        y0[:n_i] = torch.from_numpy(np.asarray(resume_y, dtype=np.float32))
+        return y0
+    g = seed_key if seed_key is not None else RandomManager.get_generator(
+        torch.device("cpu"))
+    draw = torch.randn((n_i, features), generator=g, device=g.device).cpu()
+    y0[:n_i] = draw * 0.1 + 1.0 / math.sqrt(features)
+    if mesh.spans_processes and seed_key is None:
+        import torch.distributed as dist
+
+        dist.broadcast(y0, src=0)
+    return y0
+
+
+def _cell_blocks(a, mesh, axis: str) -> dict:
+    """``a`` (a host array) split in equal row blocks over ``axis``: cell
+    -> its block (``parallel/mesh.split_rows``; read-only)."""
+    from oryx_tpu_torch.parallel.mesh import split_rows
+
+    return split_rows(torch.as_tensor(np.asarray(a)), mesh, axis).shards
+
+
+def _partial_normal_equations(fc_local, base: int, bidx, bval, bmask, alpha,
+                              implicit, acc=torch.float32):
+    """The part of each row's A [B,K,K] and b [B,K] that this cell's block
+    of the fixed side contributes (the JAX package's ``one_block`` before
+    its psum): ``fc_local`` holds the fixed side's rows [base, base +
+    len), in the compute type; list entries outside them weigh zero."""
+    m_local = fc_local.shape[0]
+    cdt = fc_local.dtype
+    rel = bidx.long() - base
+    inblk = ((rel >= 0) & (rel < m_local)).float() * bmask
+    yu = fc_local[rel.clamp(0, max(m_local - 1, 0))].to(acc)
+    if implicit:
+        w = alpha * bval * inblk
+        a = _weighted_gram(yu, w.to(cdt), acc)
+        pref = (bval > 0).float() * inblk
+        b = _weighted_sum(yu, ((1.0 + w) * pref).to(cdt), acc)
+    else:
+        a = _weighted_gram(yu, inblk.to(cdt), acc)
+        b = _weighted_sum(yu, (bval * inblk).to(cdt), acc)
+    return a, b
+
+
+def _summed_solve(mesh, axis, fcs, bases, gram_f, lists, rows, lam, alpha,
+                  implicit, acc, jitter=False):
+    """Assemble, sum across ``axis`` and solve the systems of ``rows[cell]``
+    (indices into the cell's lists) on every cell: (x, ok) per cell. Every
+    cell of a group sums the same partials in the same order, so it solves
+    the same systems and reaches the same (x, ok)."""
+    pa, pb = {}, {}
+    for c in mesh.cells():
+        idx, val, mask = lists[c]
+        r = rows[c]
+        pa[c], pb[c] = _partial_normal_equations(
+            fcs[c], bases[c], idx[r], val[r], mask[r], alpha, implicit, acc)
+    sa, sb = mesh.psum(pa, axis), mesh.psum(pb, axis)
+    out = {}
+    for c in mesh.cells():
+        k = fcs[c].shape[1]
+        eye = torch.eye(k, dtype=acc, device=sa[c].device)
+        if implicit:
+            a = gram_f[c].to(acc)[None] + sa[c] + lam * eye[None]
+        else:
+            n_u = lists[c][2][rows[c]].sum(dim=1).to(acc)
+            a = sa[c] + (lam * torch.clamp(n_u, min=1.0))[:, None, None] * eye[None]
+        if jitter:
+            j = 0.02 * a.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / k + 1e-6
+            a = a + j[:, None, None] * eye[None]
+        out[c] = batched_spd_solve_ex(a, sb[c])
+    return out
+
+
+def _half_step_tp(mesh, axis, fixed, bases, gram_f, lists, lam, alpha,
+                  implicit: bool, block: int, compute_dtype=torch.float32):
+    """One tensor-parallel half-iteration over every cell of ``mesh``.
+
+    ``fixed[cell]``: the cell's block of the fixed side, rows [bases[cell],
+    ...), split over ``axis``; ``lists[cell]``: (idx, val, mask) of the
+    cell's solving rows with GLOBAL indices into the fixed side;
+    ``gram_f[cell]``: the fixed side's whole Gram. Each row's normal
+    equations are summed over ``axis`` (the JAX package's psum) and solved
+    on every cell of the group. Rows whose f32 factorization fails are
+    assembled, summed and solved again in f64, then with jitter, as
+    ``_half_step`` does; every cell of a group makes the same decision,
+    because it solved the same summed systems. Returns the solved rows per
+    cell."""
+    cells = mesh.cells()
+    cdt = _compute_dtype(compute_dtype)
+    fcs = {c: fixed[c].to(cdt) for c in cells}
+    n = lists[cells[0]][0].shape[0]
+    k = fixed[cells[0]].shape[1]
+    out = {c: torch.empty((n, k), dtype=torch.float32, device=mesh.device(*c))
+           for c in cells}
+    ok = {c: torch.empty(n, dtype=torch.bool, device=mesh.device(*c))
+          for c in cells}
+    for lo in range(0, n, block):
+        rows = {c: slice(lo, min(n, lo + block)) for c in cells}
+        res = _summed_solve(mesh, axis, fcs, bases, gram_f, lists, rows, lam,
+                            alpha, implicit, torch.float32)
+        for c in cells:
+            out[c][rows[c]], ok[c][rows[c]] = res[c]
+    bad = {c: torch.nonzero(~ok[c])[:, 0] for c in cells}
+    if any(b.numel() for b in bad.values()):
+        f64 = {c: fixed[c].double() for c in cells}
+        gram64 = mesh.psum({c: f64[c].T @ f64[c] for c in cells}, axis)
+        for jitter in (False, True):
+            most = max(b.numel() for b in bad.values())
+            for lo in range(0, most, block):
+                rows = {c: bad[c][lo:lo + block] for c in cells}
+                res = _summed_solve(mesh, axis, fcs, bases, gram64, lists,
+                                    rows, lam, alpha, implicit, torch.float64,
+                                    jitter=jitter)
+                for c in cells:
+                    x, good = res[c]
+                    if jitter:
+                        x = torch.where(good[:, None], x, torch.zeros_like(x))
+                    out[c][rows[c]] = x.float()
+                    ok[c][rows[c]] = good
+            bad = {c: torch.nonzero(~ok[c])[:, 0] for c in cells}
+            if not any(b.numel() for b in bad.values()):
+                break
+    return {c: torch.where(torch.isfinite(out[c]).all(dim=1, keepdim=True),
+                           out[c], 0.0) for c in cells}
+
+
+def _tp_block(n: int, parts: int, block: int) -> int:
+    """The row block of ``n`` rows split in ``parts``: ``block``, shrunk to
+    the local shard size when shards are small (the JAX package's rule
+    for its lax.map block)."""
+    return min(block, 1 << max(0, max(1, n // parts) - 1).bit_length())
+
+
+def als_train_tp(mesh, u_lists, i_lists, y0, lam, alpha, *, implicit: bool,
+                 iterations: int, block: int, compute_dtype: str = "float32"):
+    """The tensor-parallel training loop over ``mesh`` (the JAX package's
+    ``als_train_tp_jit`` body, run eagerly): ``u_lists``/``i_lists`` are
+    (idx, val, mask) host arrays with N_u % (dp*block) == 0 and
+    N_i % (tp*block) == 0, ``y0`` [N_i, K] the host init. Returns (x, y)
+    as MeshArrays: x split over "data" rows, y over "model" rows."""
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, MeshArray
+
+    cells = mesh.cells()
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    n_u, n_i = u_lists[0].shape[0], i_lists[0].shape[0]
+    k = y0.shape[1]
+    u = [_cell_blocks(a, mesh, DATA_AXIS) for a in u_lists]
+    i = [_cell_blocks(a, mesh, MODEL_AXIS) for a in i_lists]
+    u_cells = {c: (u[0][c], u[1][c], u[2][c]) for c in cells}
+    i_cells = {c: (i[0][c], i[1][c], i[2][c]) for c in cells}
+    y = _cell_blocks(y0.numpy(), mesh, MODEL_AXIS)
+    y = {c: t.clone() for c, t in y.items()}
+    x = {c: torch.zeros((n_u // dp, k), dtype=torch.float32,
+                        device=mesh.device(*c)) for c in cells}
+    y_base = {c: c[1] * (n_i // tp) for c in cells}
+    x_base = {c: c[0] * (n_u // dp) for c in cells}
+    with full_f32():
+        for _ in range(iterations):
+            gram_y = mesh.psum({c: gram(y[c]) for c in cells}, MODEL_AXIS)
+            x = _half_step_tp(mesh, MODEL_AXIS, y, y_base, gram_y, u_cells,
+                              lam, alpha, implicit, block, compute_dtype)
+            gram_x = mesh.psum({c: gram(x[c]) for c in cells}, DATA_AXIS)
+            y = _half_step_tp(mesh, DATA_AXIS, x, x_base, gram_x, i_cells,
+                              lam, alpha, implicit, block, compute_dtype)
+    return (MeshArray(mesh, x, DATA_AXIS, (n_u, k)),
+            MeshArray(mesh, y, MODEL_AXIS, (n_i, k)))
+
+
+def train_als_tp(
+    data: InteractionData,
+    mesh,
+    features: int = 10,
+    lam: float = 0.001,
+    alpha: float = 1.0,
+    iterations: int = 10,
+    implicit: bool = True,
+    cap: int = 1024,
+    block: int = 1024,
+    seed_key=None,
+    compute_dtype: str = "float32",
+    resume_y: np.ndarray | None = None,
+    timings: dict | None = None,
+) -> ALSModelArrays:
+    """Tensor-parallel train_als: X split by user over "data", Y by item
+    over "model"; no cell holds either factor table whole. Every process
+    of a mesh that spans processes returns the whole model."""
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    n_u, n_i = data.n_users, data.n_items
+    if n_u == 0 or n_i == 0 or len(data.values) == 0:
+        raise ValueError("empty interaction data")
+    t_mark = time.perf_counter()
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    u_lists = _cached_lists(
+        "u_lists", data, (cap,),
+        lambda: build_padded_lists(data.users, data.items, data.values, n_u, cap),
+    )
+    i_lists = _cached_lists(
+        "i_lists", data, (cap,),
+        lambda: build_padded_lists(data.items, data.users, data.values, n_i, cap),
+    )
+    blk = min(_tp_block(n_u, dp, block), _tp_block(n_i, tp, block))
+    n_u_pad = -(-n_u // (dp * blk)) * (dp * blk)
+    n_i_pad = -(-n_i // (tp * blk)) * (tp * blk)
+    u_p = tuple(_row_pad(a, n_u_pad) for a in u_lists)
+    i_p = tuple(_row_pad(a, n_i_pad) for a in i_lists)
+    y0 = _init_y(data, features, n_i_pad, seed_key, resume_y, mesh)
+    t_exec = time.perf_counter()
+    x, y = als_train_tp(
+        mesh, u_p, i_p, y0, float(lam), float(alpha), implicit=implicit,
+        iterations=iterations, block=blk, compute_dtype=compute_dtype,
+    )
+    x, y = x.full().numpy(), y.full().numpy()
+    if timings is not None:
+        timings.update(lists_s=t_exec - t_mark, compile_s=0.0,
+                       train_s=time.perf_counter() - t_exec)
+    return _finish_model(x, y, n_u, n_i, data)
+
+
+def _train_dp(data, mesh, *, features, lam, alpha, iterations, implicit,
+              cap, block, seed_key, compute_dtype, resume_y, timings):
+    """Data-parallel train_als on a (data, 1) mesh: the padded lists and
+    both factor tables split by row over "data"; each half-step gathers
+    the fixed side (all-gather) and sums its Gram (psum), and every cell
+    solves its own rows with ``_half_step``."""
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS
+
+    n_u, n_i = data.n_users, data.n_items
+    if n_u == 0 or n_i == 0 or len(data.values) == 0:
+        raise ValueError("empty interaction data")
+    t_mark = time.perf_counter()
+    dp = mesh.shape[DATA_AXIS]
+    u_lists = _cached_lists(
+        "u_lists", data, (cap,),
+        lambda: build_padded_lists(data.users, data.items, data.values, n_u, cap),
+    )
+    i_lists = _cached_lists(
+        "i_lists", data, (cap,),
+        lambda: build_padded_lists(data.items, data.users, data.values, n_i, cap),
+    )
+    blk = min(block, 1 << max(0, max(n_u, n_i) - 1).bit_length())
+    unit = max(blk, dp) if blk % dp == 0 or dp % blk == 0 else blk * dp
+    n_u_pad = -(-n_u // unit) * unit
+    n_i_pad = -(-n_i // unit) * unit
+    u = [_cell_blocks(_row_pad(a, n_u_pad), mesh, DATA_AXIS) for a in u_lists]
+    i = [_cell_blocks(_row_pad(a, n_i_pad), mesh, DATA_AXIS) for a in i_lists]
+    cells = mesh.cells()
+    y0 = _init_y(data, features, n_i_pad, seed_key, resume_y, mesh)
+    y = {c: t.clone() for c, t in
+         _cell_blocks(y0.numpy(), mesh, DATA_AXIS).items()}
+    x = {}
+    cdt = _compute_dtype(compute_dtype)
+    t_exec = time.perf_counter()
+    with full_f32():
+        for _ in range(iterations):
+            y_all = mesh.all_gather(y, DATA_AXIS)
+            gram_y = mesh.psum({c: gram(y[c]) for c in cells}, DATA_AXIS)
+            x = {c: _half_step(y_all[c], gram_y[c], u[0][c], u[1][c], u[2][c],
+                               float(lam), float(alpha), implicit, blk, cdt)
+                 for c in cells}
+            x_all = mesh.all_gather(x, DATA_AXIS)
+            gram_x = mesh.psum({c: gram(x[c]) for c in cells}, DATA_AXIS)
+            y = {c: _half_step(x_all[c], gram_x[c], i[0][c], i[1][c], i[2][c],
+                               float(lam), float(alpha), implicit, blk, cdt)
+                 for c in cells}
+    x_full = mesh.all_gather(x, DATA_AXIS)[cells[0]].cpu().numpy()
+    y_full = mesh.all_gather(y, DATA_AXIS)[cells[0]].cpu().numpy()
+    if timings is not None:
+        timings.update(lists_s=t_exec - t_mark, compile_s=0.0,
+                       train_s=time.perf_counter() - t_exec)
+    return _finish_model(x_full, y_full, n_u, n_i, data)
+
+
+def _train_row_sharded(data, mesh, *, features, lam, alpha, iterations,
+                       implicit, cap, block, seed_key, compute_dtype,
+                       resume_y, timings):
+    """The bucketed trainer with the item-factor table split by row over
+    the mesh's "model" axis (``parallel/shardspec.RowShards``; data axis
+    1): the user half-step sums each row's normal equations over Y's
+    shards (``_half_step_tp``, X whole on every cell), and each cell
+    solves the items it owns against the whole X. Y is never whole on one
+    cell."""
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from oryx_tpu_torch.parallel.shardspec import RowShards
+
+    if mesh.shape[DATA_AXIS] != 1 or mesh.spans_processes:
+        raise ValueError("shard_mesh is a (1, n) mesh of one process")
+    n_u, n_i = data.n_users, data.n_items
+    if n_u == 0 or n_i == 0 or len(data.values) == 0:
+        raise ValueError("empty interaction data")
+    t_mark = time.perf_counter()
+    unit = 1024
+    u_buckets, blocks_u = _cached_lists(
+        "u_buckets", data, (cap, block, unit),
+        lambda: build_bucketed_lists(
+            data.users, data.items, data.values, n_u, cap,
+            block=block, unit=unit,
+        ),
+    )
+    i_buckets, blocks_i = _cached_lists(
+        "i_buckets", data, (cap, block, unit),
+        lambda: build_bucketed_lists(
+            data.items, data.users, data.values, n_i, cap,
+            block=block, unit=unit,
+        ),
+    )
+    cells = mesh.cells()
+    plan = RowShards.plan(n_i, mesh.shape[MODEL_AXIS])
+    if plan.n_shards != len(cells):
+        raise ValueError(f"{n_i} items cannot fill {len(cells)} shards")
+    devs = {c: mesh.device(*c) for c in cells}
+    per_dev: dict = {}
+    for dev in set(devs.values()):
+        per_dev[dev] = (_upload_buckets(u_buckets, n_u, dev),
+                        _upload_buckets(i_buckets, n_i, dev))
+    y0 = _init_y(data, features, n_i, seed_key, resume_y, mesh)
+    y = {c: y0[plan.lo(c[1]):plan.lo(c[1]) + plan.size(c[1])].to(devs[c])
+         for c in cells}
+    base = {c: plan.lo(c[1]) for c in cells}
+    cdt = _compute_dtype(compute_dtype)
+    x = {c: torch.zeros((n_u, features), dtype=torch.float32, device=devs[c])
+         for c in cells}
+    t_exec = time.perf_counter()
+    with full_f32():
+        for _ in range(iterations):
+            gram_y = mesh.psum({c: gram(y[c]) for c in cells}, MODEL_AXIS)
+            for c in cells:
+                x[c].zero_()
+            for j, blk in enumerate(blocks_u):
+                lists = {c: per_dev[devs[c]][0][j][1:] for c in cells}
+                solved = _half_step_tp(mesh, MODEL_AXIS, y, base, gram_y,
+                                       lists, float(lam), float(alpha),
+                                       implicit, blk, cdt)
+                for c in cells:
+                    x[c][per_dev[devs[c]][0][j][0]] = solved[c]
+            for c in cells:
+                lo, hi = base[c], base[c] + plan.size(c[1])
+                gram_x = gram(x[c])
+                y_new = torch.zeros_like(y[c])
+                for (rows, idx, val, mask), blk in zip(per_dev[devs[c]][1],
+                                                       blocks_i):
+                    own = torch.nonzero((rows >= lo) & (rows < hi))[:, 0]
+                    if own.numel():
+                        y_new[rows[own] - lo] = _half_step(
+                            x[c], gram_x, idx[own], val[own], mask[own],
+                            float(lam), float(alpha), implicit, blk, cdt)
+                y[c] = y_new
+    y_full = torch.cat([y[c].cpu() for c in cells]).numpy()
+    if timings is not None:
+        timings.update(lists_s=t_exec - t_mark, compile_s=0.0,
+                       train_s=time.perf_counter() - t_exec)
+    return _finish_model(x[cells[0]].cpu().numpy(), y_full, n_u, n_i, data)
+
+
+# ---------------------------------------------------------------------------
 # bucketed lists: rows grouped by interaction count so light rows don't pay
 # the heaviest row's padding
 # ---------------------------------------------------------------------------
@@ -1341,7 +1734,13 @@ def topk_dot_batch(xs, y, *, k: int, recall: float = 1.0):
     to the fused kernel wrapper (ops/topk.py), for both a bf16/f32 item
     matrix and a QuantizedMatrix: on a CUDA tensor that is always the
     hand-written kernel, and a failure raises -- there is no silent
-    fallback. k > 128 and recall < 1 take the plain large product."""
+    fallback. k > 128 and recall < 1 take the plain large product. A
+    ShardedMatrix goes to ops/shard_topk.py (the partial kernel per shard,
+    one ``topk_merge`` across them)."""
+    if isinstance(y, ShardedMatrix):
+        from oryx_tpu_torch.ops.shard_topk import topk_dot_batch_sharded
+
+        return topk_dot_batch_sharded(xs, y, k=k, recall=recall)
     if isinstance(y, QuantizedMatrix):
         if recall >= 1.0 and k <= PALLAS_TOPK_MAX_K:
             return topk_dot_batch_cuda(xs, y.q, k=k, scales=y.scale)

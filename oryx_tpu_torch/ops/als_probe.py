@@ -26,6 +26,19 @@ build); summed over the sweeps, the rows whose f32 factorization failed
 (the parent's jittered retries included) and, of those, the rows f64
 could not factor either (jittered); the all-zero rows of the result;
 both factor tables' Frobenius norms; and the sweeps' seconds.
+
+    python3 -m oryx_tpu_torch.ops.als_probe tp [--sweeps 1,2,5,10,20]
+
+``tp`` is the tensor-parallel trainer's witness. It takes chip_smoke.py's
+trainer leg (6,000 users x 3,700 items x 1,000,000 interactions, 50
+features, lambda 0.01, 2% held out, the same resume_y) and, for each sweep
+count, trains single-device ``train_als``, ``train_als_tp`` on a (2, 2)
+mesh over the card, and ``f64_reference`` (float64 throughout) from that
+Y. One JSON line per sweep count: each pair's largest factor difference
+(x and y), the largest excess over the smoke's tolerance (rtol 2e-3, atol
+2e-4) of the TP factors against the single-device ones, each trainer's
+rows whose f32 factorization failed (and were solved again in f64), and
+the held-out AUC of each.
 """
 
 from __future__ import annotations
@@ -65,6 +78,9 @@ def main(argv=None) -> int:
     sd.add_argument("--dtypes", default="bfloat16,float32")
     sd.add_argument("--seeds", default="0-11")
     sd.add_argument("--sweeps", type=int, default=10)
+    tpp = sub.add_parser("tp")
+    tpp.add_argument("--shape", default="6000,3700,1000000")
+    tpp.add_argument("--sweeps", default="1,2,5,10,20")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("als_probe needs a CUDA card")
@@ -75,6 +91,8 @@ def main(argv=None) -> int:
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     if args.cmd == "seeds":
         return _seeds(args)
+    if args.cmd == "tp":
+        return _tp(args)
 
     n_u, n_i, nnz = (int(v) for v in args.shape.split(","))
     users, items, values = synthesize_interactions(n_u, n_i, nnz, seed=7)
@@ -199,6 +217,131 @@ def _seeds(args) -> int:
                     "x_norm": float(np.linalg.norm(model.x)),
                     "y_norm": float(np.linalg.norm(model.y)),
                     "train_s": train_s}), flush=True)
+    return 0
+
+
+def f64_reference(data, y0, *, lam: float, alpha: float, iterations: int,
+                  cap: int = 1024, block: int = 256, device="cuda"):
+    """Implicit ALS from ``y0`` in float64 throughout: the port's normal
+    equations (ops/als.py ``_normal_equations``) over f64 factors, Grams,
+    sums and Cholesky solves, on the padded lists. The f32 trainers'
+    witness: each lies from it by its own rounding. Returns (x, y, rows
+    whose f64 factorization failed, which stay zero)."""
+    import numpy as np
+    import torch
+
+    from oryx_tpu_torch.ops import als as A
+
+    dev = torch.device(device)
+    lists = {}
+    for tag, ent, oth, n in (("u", data.users, data.items, data.n_users),
+                             ("i", data.items, data.users, data.n_items)):
+        lists[tag] = tuple(torch.from_numpy(a).to(dev) for a in
+                           A.build_padded_lists(ent, oth, data.values, n, cap))
+    failed = 0
+
+    def half(fixed, lst):
+        nonlocal failed
+        idx, val, mask = lst
+        gram = fixed.T @ fixed
+        out = torch.zeros((idx.shape[0], fixed.shape[1]), dtype=torch.float64,
+                          device=dev)
+        for lo in range(0, idx.shape[0], block):
+            a, b = A._normal_equations(
+                fixed, gram, idx[lo:lo + block], val[lo:lo + block],
+                mask[lo:lo + block], lam, alpha, True, acc=torch.float64)
+            x, ok = A.batched_spd_solve_ex(a, b)
+            out[lo:lo + block] = torch.where(ok[:, None], x, 0.0)
+            failed += int((~ok).sum())
+        return out
+
+    y = torch.as_tensor(np.asarray(y0, dtype=np.float64), device=dev)
+    with A.full_f32():
+        for _ in range(iterations):
+            x = half(y, lists["u"])
+            y = half(x, lists["i"])
+    return x.cpu().numpy(), y.cpu().numpy(), failed
+
+
+def _excess(a, b, rtol: float, atol: float) -> float:
+    """The largest |a - b| - (atol + rtol |b|): <= 0 within the tolerance,
+    as numpy's assert_allclose(a, b) reads it."""
+    import numpy as np
+
+    return float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
+
+
+def _tp(args) -> int:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.ml.quality import holdout_auc
+    from oryx_tpu_torch.ml.synth import synthesize_interactions
+    from oryx_tpu_torch.ops import als as A
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    n_u, n_i, nnz = (int(v) for v in args.shape.split(","))
+    k, lam, alpha = 50, 0.01, 1.0
+    # chip_smoke.py's trainer leg: its data, split and resume_y
+    users, items, values = synthesize_interactions(n_u, n_i, nnz, seed=7)
+    rng = np.random.default_rng(7 + 1_000_003)
+    test_mask = rng.random(nnz) < 0.02
+    tr = ~test_mask
+    data = A.aggregate_interactions(users[tr], items[tr], values[tr], implicit=True)
+    y0 = (np.random.default_rng(20240611 + 7).standard_normal((data.n_items, k))
+          * 0.1 + 1 / np.sqrt(k)).astype(np.float32)
+    mesh = make_mesh(MeshSpec(2, 2), [torch.device("cuda")] * 4)
+    failed = []
+
+    def spy(real):
+        def solve(a, b):
+            x, ok = real(a, b)
+            if a.dtype == torch.float32:
+                failed.append((~ok).sum())
+            return x, ok
+        return solve
+
+    A.batched_spd_solve_ex = spy(A.batched_spd_solve_ex)
+    for sweeps in (int(v) for v in args.sweeps.split(",")):
+        kw = dict(features=k, lam=lam, alpha=alpha, iterations=sweeps,
+                  implicit=True, resume_y=y0)
+        runs, f32_fails = {}, {}
+        for name, fn in (("single", lambda: A.train_als(data, device="cuda", **kw)),
+                         ("tp", lambda: A.train_als_tp(data, mesh, **kw))):
+            failed.clear()
+            m = fn()
+            runs[name] = (m.x, m.y, m)
+            # a TP row fails on each of the mesh's 4 cells
+            f32_fails[name] = sum(int(c) for c in failed) // (4 if name == "tp" else 1)
+        t0 = time.perf_counter()
+        x64, y64, f64_fails = f64_reference(
+            data, y0, lam=lam, alpha=alpha, iterations=sweeps)
+        f64_s = time.perf_counter() - t0
+        runs["f64"] = (x64, y64, None)
+        line = {"sweeps": sweeps, "shape": args.shape, "mesh": [2, 2],
+                "f64_s": f64_s, "f64_failed_rows": f64_fails,
+                "f32_failed_rows": f32_fails,
+                "max_abs_y": float(np.abs(y64).max()),
+                "max_abs_x": float(np.abs(x64).max())}
+        for a, b in (("tp", "single"), ("single", "f64"), ("tp", "f64")):
+            for j, side in enumerate("xy"):
+                line[f"d{side}_{a}_{b}"] = float(
+                    np.abs(runs[a][j] - runs[b][j]).max())
+        line["excess_tp_vs_single"] = max(
+            _excess(runs["tp"][j], runs["single"][j], 2e-3, 2e-4) for j in (0, 1))
+        auc = {}
+        for name in ("single", "tp"):
+            RandomManager.use_test_seed(123)  # the same negatives each build
+            try:
+                auc[name] = float(holdout_auc(runs[name][2], users, items,
+                                              test_mask, copy.deepcopy(rng)))
+            finally:
+                RandomManager.clear_test_seed()
+        line["auc"] = auc
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -180,11 +180,17 @@ def _scores(xs: torch.Tensor, y: torch.Tensor, scales=None) -> torch.Tensor:
     JAX reference computes with Precision.HIGHEST. int8 inputs give exact
     integer sums (each stays below 2^24), times the item scale. The TF32
     switch is restored afterwards: other products in the process keep
-    theirs."""
+    theirs. On the CPU, bf16 inputs sum in float64 and round once: their
+    products are exact there, so a score does not depend on how the host's
+    BLAS blocks the product by the item count (a row scores the same in a
+    shard of the view as in the whole view, as on the card)."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        s = xs.float() @ y.float().T
+        if y.device.type == "cpu" and y.dtype == torch.bfloat16:
+            s = (xs.double() @ y.double().T).float()
+        else:
+            s = xs.float() @ y.float().T
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     if scales is not None:

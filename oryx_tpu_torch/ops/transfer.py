@@ -17,8 +17,18 @@ whose row strides must be multiples of 16 bytes; a bf16 row at F=50 is 100
 bytes and an int8 row 50. The logical shape stays ``[n, F]``, so plain
 PyTorch code sees the same values as before.
 
-Chunked and row-sharded views wait for a later slice; a view larger than
-the card's memory raises instead.
+- ``ShardedMatrix`` is a row-sharded view: shard s (a pitched tensor, or a
+  QuantizedMatrix) holds the rows a ``parallel/shardspec.RowShards`` plan
+  gives it, on its own device (one card per shard where the host has them,
+  the card cycled otherwise). ``ops/shard_topk.py`` scores it shard by
+  shard and merges the partial lists; ``scatter_rows`` routes a dirty-row
+  delta into the owning shards only. Views hold live rows, so rows
+  appended past the plan join the last shard (``RowShards.grown``).
+
+A view larger than its device's memory raises (``_check_fits``, per shard
+for a sharded view). The JAX package's chunked view exists for the TPU's
+remote-compile limit; the port's kernel takes its sizes at run time and
+has no such limit.
 """
 
 from __future__ import annotations
@@ -77,8 +87,9 @@ def _check_fits(n_bytes: int, device: torch.device) -> None:
         total = torch.cuda.get_device_properties(device).total_memory
         if n_bytes > total:
             raise ValueError(
-                f"a {n_bytes}-byte view does not fit the card's {total} "
-                "bytes; chunked and sharded views are not ported yet"
+                f"a {n_bytes}-byte view does not fit the {total} bytes of "
+                f"{device}; shard it across cards "
+                "(oryx.serving.api.sync.shard-count)"
             )
 
 
@@ -207,7 +218,10 @@ def scatter_rows(buf, idx: np.ndarray, rows: np.ndarray,
     The copy of a 2-D item view is pitched (``pitched_empty``).
 
     A QuantizedMatrix re-quantizes ONLY the dirty rows (each row's scale is
-    independent), so an update storm never requantizes the whole matrix."""
+    independent), so an update storm never requantizes the whole matrix.
+    A ShardedMatrix scatters into the shards that own the dirty rows and
+    keeps every other shard (the same object); growth joins the last
+    shard."""
     idx = np.asarray(idx, dtype=np.int64)
     n_old = buf.shape[0]
     n_rows = n_old if n_rows is None else int(n_rows)
@@ -215,6 +229,20 @@ def scatter_rows(buf, idx: np.ndarray, rows: np.ndarray,
         raise ValueError(f"cannot shrink {n_old} rows to {n_rows}")
     if idx.shape[0] == 0 and n_rows == n_old:
         return buf
+    if isinstance(buf, ShardedMatrix):
+        plan = buf.plan.grown(n_rows)
+        shards = list(buf.shards)
+        last = plan.n_shards - 1
+        touched = {s: (local, sel) for s, local, sel in plan.split(
+            idx, np.arange(idx.size, dtype=np.int64))}
+        if n_rows > n_old:
+            touched.setdefault(last, (np.zeros(0, np.int64), np.zeros(0, np.int64)))
+        rows = np.asarray(rows)
+        for s, (local, sel) in touched.items():
+            shards[s] = scatter_rows(
+                shards[s], local, rows[sel], plan.size(s) if s == last else None
+            )
+        return ShardedMatrix(shards, plan)
     if isinstance(buf, QuantizedMatrix):
         q_rows, s_rows = quantize_rows_int8(np.asarray(rows, dtype=np.float32))
         return QuantizedMatrix(
@@ -239,6 +267,89 @@ def scatter_rows(buf, idx: np.ndarray, rows: np.ndarray,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out
+
+
+class ShardedMatrix:
+    """Row-sharded device matrix: shards[s] (a pitched tensor, or a
+    QuantizedMatrix for score-mode=quantized) holds the rows
+    [plan.bounds[s], plan.bounds[s+1]) of the logical matrix. Quacks like a
+    tensor where the serving batcher needs it (shape / dtype / device /
+    nbytes); scoring dispatches through ops.shard_topk.topk_dot_batch_sharded,
+    and scatter_rows routes a dirty-row delta into the owning shards
+    only."""
+
+    __slots__ = ("shards", "plan")
+
+    def __init__(self, shards, plan):
+        self.shards = list(shards)
+        self.plan = plan
+        if len(self.shards) != plan.n_shards:
+            raise ValueError(
+                f"{len(self.shards)} shards for a {plan.n_shards}-shard plan"
+            )
+        for s, shard in enumerate(self.shards):
+            if int(shard.shape[0]) != plan.size(s):
+                raise ValueError(
+                    f"shard {s} has {shard.shape[0]} rows, plan owns "
+                    f"{plan.size(s)}"
+                )
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def shape(self):
+        return (self.plan.total,) + tuple(self.shards[0].shape[1:])
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: where the merge runs."""
+        return self.shards[0].device
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(s.nbytes for s in self.shards))
+
+    def map(self, fn) -> "ShardedMatrix":
+        """Per-shard row-local transform (e.g. row normalization for the
+        cosine view); anything cross-shard belongs in the merge."""
+        return ShardedMatrix([fn(s) for s in self.shards], self.plan)
+
+
+def sharded_device_put(
+    a: np.ndarray,
+    n_shards: int,
+    dtype: torch.dtype | None = None,
+    quantize: bool = False,
+    device=None,
+    devices=None,
+) -> ShardedMatrix:
+    """Upload a host matrix as a ShardedMatrix: rows partitioned by
+    ``RowShards.plan``, shard s staged onto its own placement device
+    (``shard_devices``: ``devices``, else every card of ``device``'s kind,
+    cycled). quantize=True builds per-shard QuantizedMatrix views; per-row
+    scales are row-local, so a shard-local quantization is bit-identical to
+    quantizing the whole matrix and slicing."""
+    from oryx_tpu_torch.parallel.shardspec import RowShards, local_devices, shard_devices
+
+    a = np.asarray(a)
+    plan = RowShards.plan(a.shape[0], n_shards)
+    devs = shard_devices(
+        plan.n_shards, local_devices(device) if devices is None else devices
+    )
+    shards = []
+    for s in range(plan.n_shards):
+        block = a[plan.bounds[s]:plan.bounds[s + 1]]
+        if quantize:
+            shards.append(quantized_device_put(block, device=devs[s]))
+        else:
+            shards.append(staged_device_put(block, dtype=dtype, device=devs[s]))
+    return ShardedMatrix(shards, plan)
 
 
 def scatter_transfer_bytes(d: int, row_itemsize: int, features: int) -> int:

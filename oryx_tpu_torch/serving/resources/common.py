@@ -103,10 +103,7 @@ def register(app: ServingApp) -> None:
         (oryx.serving.api.max-staleness-sec) — a condition a log line
         can't route to a load balancer.
         HEAD stays pure liveness (200 whenever the frontend dispatches),
-        so probes choose their semantics by method.
-
-        Carries the JAX package's fields but its shards field, which
-        comes with sharded views (ROADMAP queue 1 item 11)."""
+        so probes choose their semantics by method."""
         from oryx_tpu_torch.common.freshness import model_freshness
 
         degraded = a.degraded_reasons()
@@ -124,6 +121,12 @@ def register(app: ServingApp) -> None:
             body["replica"] = a.replica_id
         if a.listen_port:
             body["port"] = a.listen_port
+        shard_count = a.config.get_int("oryx.serving.api.sync.shard-count", 1)
+        if shard_count > 1:
+            # shard topology surface: the fleet front compares this with
+            # its expected shards per replica and treats a mis-sharded
+            # replica as degraded
+            body["shards"] = shard_count
         age = a.staleness_age()
         if age is not None:
             body["staleness_seconds"] = round(age, 3)

@@ -7,9 +7,9 @@ with the live store by dirty-row delta (``FactorStore.delta_since`` +
 live here — the dirty-delta id-list extension and the process-wide sync
 metric families — so every serving model reports into ONE
 ``oryx_device_sync_*`` vocabulary. (The view-tuple state machines stay
-per app.) The JAX package's ``sharded_delta_bytes`` comes with the
-sharded views (ROADMAP queue 1 item 11); until then no view is sharded
-and ``oryx_shard_rows`` has no series.
+per app.) A sharded view reports each shard's bytes under
+``{shard="sN"}`` (``sharded_delta_bytes``) and each shard's live rows on
+``oryx_shard_rows`` (``set_shard_rows``).
 """
 
 from __future__ import annotations
@@ -88,12 +88,27 @@ def note_sync_bytes(m_bytes, total: int, by_shard: dict[int, int] | None) -> Non
 
 
 def set_shard_rows(gauge, plan, n_valid: int) -> None:
-    """Publish per-shard valid-row ownership for a sharded view: shard s
-    owns the capacity rows [bounds[s], bounds[s+1]), of which the rows
-    below the store size n_valid are real."""
+    """Publish per-shard live-row ownership for a sharded view: shard s
+    owns rows [bounds[s], bounds[s+1]), of which the rows below the store
+    size n_valid are live (all of them: the port's views hold live rows
+    only)."""
     for s in range(plan.n_shards):
         lo, hi = plan.bounds[s], plan.bounds[s + 1]
         gauge.set(float(max(0, min(n_valid, hi) - lo)), shard=f"s{s}")
+
+
+def sharded_delta_bytes(plan, rows, bytes_of_d) -> tuple[int, dict[int, int]]:
+    """(total, {shard: bytes}) one dirty-row delta moves into a sharded
+    view: rows split by owning shard (parallel/shardspec), each shard's
+    slice priced by ``bytes_of_d`` (its own scatter). A delta confined to
+    one shard produces exactly one entry."""
+    import numpy as np
+
+    by_shard = {
+        s: int(bytes_of_d(len(local)))
+        for s, local, _ in plan.split(np.asarray(rows))
+    }
+    return sum(by_shard.values()), by_shard
 
 
 def extend_view_ids(ids: list, delta) -> list | None:

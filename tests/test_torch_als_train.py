@@ -334,9 +334,22 @@ def test_train_als_seeded_init_is_deterministic():
 
 @pytest.mark.parametrize("arg", ["mesh", "shard_mesh"])
 def test_multi_device_training_is_not_ported(arg):
+    """(Named when both arguments raised.) A two-cell CPU mesh trains the
+    single-device model from the same Y, within the reordered sums of
+    f32; combining the two arguments raises."""
+    from oryx_tpu_torch.parallel.mesh import host_mesh, model_mesh
+
     dt, _, _ = _train_data()
-    with pytest.raises(ValueError, match="item 11"):
-        T.train_als(dt, device="cpu", **{arg: object()})
+    y0 = np.random.default_rng(4).normal(size=(dt.n_items, 4)).astype(np.float32)
+    kw = dict(features=4, iterations=3, resume_y=y0)
+    one = T.train_als(dt, device="cpu", **kw)
+    mesh = host_mesh(2, "cpu") if arg == "mesh" else model_mesh(2, "cpu")
+    two = T.train_als(dt, **{arg: mesh}, **kw)
+    np.testing.assert_allclose(two.x, one.x, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(two.y, one.y, rtol=2e-3, atol=2e-4)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        T.train_als(dt, mesh=host_mesh(2, "cpu"),
+                    shard_mesh=model_mesh(2, "cpu"), **kw)
 
 
 def test_train_als_defaults_to_the_card(monkeypatch):

@@ -373,12 +373,38 @@ def test_fleet_and_pod_are_not_ported_yet(command):
     assert "ROADMAP queue 1 item" in str(ei.value)
 
 
-def test_cli_fleet_refuses_shards():
-    """``cli fleet --shards 2`` is refused with the serving layer's own
-    message, before any replica starts: shards per replica are not
-    ported."""
-    with pytest.raises(ValueError, match="sharded views are not ported yet"):
-        cli.main(["fleet", "--replicas", "3", "--shards", "2"])
+def test_cli_fleet_refuses_shards(monkeypatch):
+    """(Named when every shard count above 1 was refused.) ``cli fleet
+    --shards 2`` reaches every replica's overlay as
+    ``oryx.serving.api.sync.shard-count``, and ``--shards 0`` is refused
+    with the serving layer's own message before any replica starts."""
+    import oryx_tpu_torch.fleet as fleet_mod
+    from oryx_tpu_torch.fleet.supervisor import replica_overlays
+
+    seen = {}
+
+    class _Supervisor:
+        def __init__(self, config, argv=None, **kw):
+            seen["overlays"] = replica_overlays(config)
+
+        def start(self):
+            raise KeyboardInterrupt  # stop before any process starts
+
+        def request_stop(self):
+            pass
+
+        def stop(self):
+            seen["stopped"] = True
+
+    monkeypatch.setattr(fleet_mod, "FleetSupervisor", _Supervisor)
+    cli.main(["fleet", "--replicas", "3", "--shards", "2"])
+    assert seen["stopped"]
+    assert [o["oryx.serving.api.sync.shard-count"]
+            for o in seen["overlays"]] == [2, 2, 2]
+    seen.clear()
+    with pytest.raises(ValueError, match="shard-count must be >= 1"):
+        cli.main(["fleet", "--replicas", "3", "--shards", "0"])
+    assert not seen
 
 
 def _kmeans_pmml(n: int = 4) -> str:

@@ -924,3 +924,122 @@ def test_seq_serving_on_the_card_answers_like_the_plain_path(cuda_device):
             assert a == b or abs(va - vb) <= 1e-5
     assert T.PARTIAL_LAUNCHES_BY_TYPE["bfloat16"] >= 32
     assert T.LAUNCHES["topk_merge"] >= 32
+
+
+# ---- sharded views: the cross-shard merge --------------------------------------
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("shards,n,b,k", [
+    (2, 20000, 37, 10), (4, 20000, 512, 32), (3, 7, 3, 7), (4, 50000, 1, 128),
+])
+def test_sharded_dispatch_matches_unsharded(cuda_device, quantize, shards, n,
+                                            b, k):
+    """A sharded view's dispatch (a partial launch per shard, one merge
+    across them) gives the unsharded view's answers bit for bit, in bf16
+    and int8; the cross-shard merge equals its plain version."""
+    from oryx_tpu_torch.ops.als import topk_dot_batch
+    from oryx_tpu_torch.ops.shard_topk import _shard_partials
+    from oryx_tpu_torch.ops.transfer import (
+        quantized_device_put, sharded_device_put, staged_device_put,
+    )
+
+    rng = np.random.default_rng(shards * 1000 + n)
+    y = rng.standard_normal((n, 50)).astype(np.float32)
+    xs = torch.from_numpy(rng.standard_normal((b, 50)).astype(np.float32)).to(cuda_device)
+    sm = sharded_device_put(y, shards, dtype=None if quantize else torch.bfloat16,
+                            quantize=quantize)
+    full = (quantized_device_put(y) if quantize
+            else staged_device_put(y, dtype=torch.bfloat16))
+    T.reset_launches()
+    v1, i1 = topk_dot_batch(xs, sm, k=k)
+    torch.cuda.synchronize()
+    live = sum(1 for s in sm.shards if s.shape[0])
+    assert T.LAUNCHES == {"topk_dot_partial": live, "topk_merge": 1}
+    v0, i0 = topk_dot_batch(xs, full, k=k)
+    assert torch.equal(v0, v1) and torch.equal(i0, i1)
+    xq = T.quantize_queries(xs)[0] if quantize else xs.to(torch.bfloat16)
+    kb = T._next_pow2(k)
+    parts = [_shard_partials(xq, s, sm.plan.lo(j), kb)
+             for j, s in enumerate(sm.shards) if s.shape[0]]
+    pv = torch.cat([p[0] for p in parts])
+    pi = torch.cat([p[1] for p in parts])
+    mv, mi = T.topk_merge(pv, pi, k=k)
+    rv, ri = T.topk_merge_reference(pv, pi, k=k)
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
+
+
+def test_merge_of_padded_partials_matches_plain_version(cuda_device):
+    """merge_topk_partials pads lists of uneven widths with (-inf,
+    INT32_MAX): the kernel merges them as its plain version does."""
+    from oryx_tpu_torch.ops.shard_topk import merge_topk_partials
+
+    g = torch.Generator().manual_seed(5)
+    parts = []
+    for w in (3, 32, 17, 1):
+        v, _ = torch.sort(torch.randn(64, w, generator=g), dim=1, descending=True)
+        i = torch.randperm(100000, generator=g)[: 64 * w].view(64, w).int()
+        parts.append((v.to(cuda_device), i.to(cuda_device)))
+    T.reset_launches()
+    v, i = merge_topk_partials(parts, k=20)
+    assert T.LAUNCHES["topk_merge"] == 1
+    cpu = [(a.cpu(), b.cpu()) for a, b in parts]
+    rv, ri = merge_topk_partials(cpu, k=20)
+    assert torch.equal(v.cpu(), rv) and torch.equal(i.cpu(), ri)
+
+
+def test_cross_shard_merge_wider_than_the_kernel_raises(cuda_device):
+    """On the card every cross-shard merge is the kernel: a padded width
+    over its 128 slots raises as ``topk_merge`` does, and is never served
+    by the plain merge."""
+    from oryx_tpu_torch.ops.shard_topk import merge_topk_partials
+
+    g = torch.Generator().manual_seed(9)
+    parts = []
+    for w in (129, 40):
+        v, _ = torch.sort(torch.randn(8, w, generator=g), dim=1, descending=True)
+        i = torch.randperm(10000, generator=g)[: 8 * w].view(8, w).int()
+        parts.append((v.to(cuda_device), i.to(cuda_device)))
+    T.reset_launches()
+    with pytest.raises(ValueError, match="kb"):
+        merge_topk_partials(parts, k=20)
+    with pytest.raises(ValueError, match="kb"):
+        merge_topk_partials(parts[1:], k=200)
+    assert T.LAUNCHES["topk_merge"] == 0
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_sharded_dispatch_past_the_kernel_k_matches_unsharded(cuda_device,
+                                                              quantize):
+    """k > 128 takes no kernel on either view: the sharded view's library
+    top-k per shard and stable sort of their union launch no merge and
+    answer as the unsharded view's library route does. int8 sums are exact
+    integers, so there the answers are bit-identical; a bf16 f32 product
+    may round differently at another item count in the library, so there
+    both answers are held to the float64 top-k within ``f32_tolerance``."""
+    from oryx_tpu_torch.ops.als import topk_dot_batch
+    from oryx_tpu_torch.ops.transfer import (
+        quantized_device_put, sharded_device_put, staged_device_put,
+    )
+
+    rng = np.random.default_rng(17)
+    y = rng.standard_normal((20000, 50)).astype(np.float32)
+    xs = torch.from_numpy(rng.standard_normal((33, 50)).astype(np.float32)).to(cuda_device)
+    sm = sharded_device_put(y, 4, dtype=None if quantize else torch.bfloat16,
+                            quantize=quantize)
+    full = (quantized_device_put(y) if quantize
+            else staged_device_put(y, dtype=torch.bfloat16))
+    T.reset_launches()
+    v1, i1 = topk_dot_batch(xs, sm, k=200)
+    assert T.LAUNCHES["topk_merge"] == 0
+    v0, i0 = topk_dot_batch(xs, full, k=200)
+    if quantize:
+        assert torch.equal(v0, v1) and torch.equal(i0, i1)
+        return
+    exact = (xs.to(torch.bfloat16).double().cpu()
+             @ torch.from_numpy(y).to(torch.bfloat16).double().T)
+    best = torch.sort(exact, dim=1, descending=True).values[:, :200]
+    tol = T.f32_tolerance(50)
+    for v, i in ((v0, i0), (v1, i1)):
+        got = exact.gather(1, i.cpu().long())
+        assert (got - v.cpu().double()).abs().max() <= tol
+        assert (got - best).abs().max() <= tol

@@ -12,6 +12,9 @@ processes of oryx_tpu_torch on the CPU behind the fleet front.
   quality gate refuses it, the rollback is a pointer swap (zero new
   distribution bytes), no client sees a non-shed 5xx, and the flight
   rings read canary-start -> quality-alarm -> canary-rollback.
+- ``canary-restart``: the same rollout, then the rolled-back canary is
+  SIGKILLed; its restart replays the update topic and serves the promoted
+  generation, never the vetoed one.
 
 Each scenario runs under a time limit of its own: a scenario that has not
 returned by then fails the test instead of holding the run, and its
@@ -66,3 +69,7 @@ def test_flight_on_kill_harvests_corpse_last_words(tmp_path):
 
 def test_fleet_canary_gates_bad_generation_and_rolls_back_pointer(tmp_path):
     assert _run_within(240, "fleet-canary", str(tmp_path)) == []
+
+
+def test_canary_restart_after_rollback_never_serves_vetoed(tmp_path):
+    assert _run_within(300, "canary-restart", str(tmp_path)) == []

@@ -548,7 +548,7 @@ def test_two_replica_front_yields_one_stitched_trace_and_exemplars(tmp_path):
             (replica_id, port) for replica_id, _, port in sup.backends()
         )
 
-        def _exemplars(text, want_replica_label):
+        def _exemplars(text, tid, replica):
             fams = {
                 f.name: f
                 for f in parser.text_string_to_metric_families(text)
@@ -556,27 +556,49 @@ def test_two_replica_front_yields_one_stitched_trace_and_exemplars(tmp_path):
             out = {}
             fam = fams.get("oryx_serving_request_seconds")
             for s in (fam.samples if fam else ()):
-                if s.exemplar and s.exemplar.labels.get("trace_id") == trace_id:
-                    if want_replica_label:
-                        assert s.labels.get("replica") == rid
+                if s.exemplar and s.exemplar.labels.get("trace_id") == tid:
+                    if replica is not None:
+                        assert s.labels.get("replica") == replica
                     out[s.labels["le"]] = s.exemplar.labels["trace_id"]
             return out
 
-        c = http.client.HTTPConnection("127.0.0.1", ports[rid], timeout=10)
-        c.request("GET", "/metrics", headers=om)
-        own_page = c.getresponse().read().decode()
-        c.close()
-        own = _exemplars(own_page, want_replica_label=False)
-        assert own, "replica's own /metrics lost the traced exemplar"
+        def _own(replica, tid):
+            c = http.client.HTTPConnection("127.0.0.1", ports[replica], timeout=10)
+            c.request("GET", "/metrics", headers=om)
+            page = c.getresponse().read().decode()
+            c.close()
+            return _exemplars(page, tid, None)
 
-        status, headers, body = _get(front.port, "/fleet/metrics", headers=om)
-        assert headers["Content-Type"].startswith("application/openmetrics-text")
-        fed_page = body.decode()
-        fed = _exemplars(fed_page, want_replica_label=True)
-        assert fed == own, (
-            "the traced request's trace id must ride the SAME latency "
-            f"bucket's exemplar through federation (own={own}, fed={fed})"
-        )
+        # A bucket's exemplar is its latest traced observation, and the
+        # front's /healthz probes and these scrapes are traced requests
+        # too: a round whose own exemplar changed between the own scrapes
+        # taken before and after the federated one compares nothing, and
+        # runs again with a fresh traced request.
+        tid, who, compared = trace_id, rid, False
+        for attempt in range(5):
+            if attempt:
+                tid = os.urandom(16).hex()
+                status, _, _ = _get(
+                    front.port, "/recommend/u1?howMany=3",
+                    headers={"traceparent": f"00-{tid}-{'12' * 8}-01"},
+                )
+                assert status == 200
+                who = next((r for r in ports if _own(r, tid)), None)
+                if who is None:
+                    continue
+            own = _own(who, tid)
+            assert own or attempt, "replica's own /metrics lost the traced exemplar"
+            status, headers, body = _get(front.port, "/fleet/metrics", headers=om)
+            assert headers["Content-Type"].startswith("application/openmetrics-text")
+            fed = _exemplars(body.decode(), tid, who)
+            if own and _own(who, tid) == own:
+                assert fed == own, (
+                    "the traced request's trace id must ride the SAME latency "
+                    f"bucket's exemplar through federation (own={own}, fed={fed})"
+                )
+                compared = True
+                break
+        assert compared, "no round kept its exemplar across the federated scrape"
     finally:
         if front is not None:
             front.close()

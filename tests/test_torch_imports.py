@@ -67,6 +67,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert set(SEQ_MODULES) <= names
     assert set(BUS_CLI_MODULES) <= names
     assert set(FLEET_MODULES) <= names
+    assert set(MULTI_DEVICE_MODULES) <= names
 
 
 # the k-means and RDF apps' modules and what they share
@@ -462,3 +463,46 @@ def test_recall_gate_needs_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_score_mode_recall(n_items=100, n_queries=4)
+
+
+# the multi-device slice: the mesh, row-shard plans, the process group and
+# the cross-shard top-k
+MULTI_DEVICE_MODULES = (
+    "oryx_tpu_torch.parallel", "oryx_tpu_torch.parallel.mesh",
+    "oryx_tpu_torch.parallel.shardspec", "oryx_tpu_torch.parallel.distributed",
+    "oryx_tpu_torch.ops.shard_topk",
+)
+
+
+def test_multi_device_modules_import_with_jax_blocked():
+    """Each module of the multi-device slice, imported alone in a fresh
+    process with jax blocked, loads no module of the JAX package (the
+    row-shard plan keeps its own copy of ``process_groups``), and a
+    sharded view's top-k runs there on the CPU."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        for name in {MULTI_DEVICE_MODULES!r}:
+            importlib.import_module(name)
+        import numpy as np, torch
+        from oryx_tpu_torch.ops.shard_topk import topk_dot_batch_sharded
+        from oryx_tpu_torch.ops.transfer import sharded_device_put
+        from oryx_tpu_torch.parallel import host_mesh
+        y = np.random.default_rng(0).normal(size=(9, 4)).astype(np.float32)
+        sm = sharded_device_put(y, 3, dtype=torch.bfloat16, device="cpu")
+        v, i = topk_dot_batch_sharded(torch.ones(1, 4), sm, k=4)
+        assert i.shape == (1, 4)
+        assert host_mesh(2, "cpu").shape == {{"data": 2, "model": 1}}
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "oryx_tpu" or k.startswith("oryx_tpu.")
+        )
+        assert not leaked, leaked
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr

@@ -360,8 +360,30 @@ def test_serving_readiness_waits_for_the_view():
 
 
 def test_sharded_serving_view_is_not_ported():
-    with pytest.raises(ValueError, match="shard"):
-        _serving(_cfg(**{"oryx.serving.api.sync.shard-count": 2}))
+    """(Named when the port refused shard-count > 1.) A shard-count-2 seq
+    manager builds a row-sharded item view whose answers equal the
+    unsharded manager's, and a delta lands in its owning shard only."""
+    from oryx_tpu_torch.apps.updates import vector_update_message
+    from oryx_tpu_torch.ops.transfer import ShardedMatrix
+
+    msg = _model_message(n_items=50, dim=8, window=3)
+    sharded = _serving(_cfg(**{"oryx.serving.api.sync.shard-count": 2}))
+    plain = _serving()
+    sharded.consume_key_message("MODEL", msg)
+    plain.consume_key_message("MODEL", msg)
+    ms, mp = sharded.get_model(), plain.get_model()
+    view = ms._device_view[0]
+    assert isinstance(view, ShardedMatrix) and view.n_shards == 2
+    ctx = ["i1", "i2", "i7"]
+    assert ms.next_items(ctx, 5) == mp.next_items(ctx, 5)
+    upd = vector_update_message("E", "i3", np.full(8, 3.0))[1]
+    sharded.consume_key_message("UP", upd)
+    plain.consume_key_message("UP", upd)
+    a, b = ms.next_items(ctx, 5), mp.next_items(ctx, 5)
+    assert [i for i, _ in a] == [i for i, _ in b]
+    after = ms._device_view[0]
+    assert after.shards[1] is view.shards[1]  # i3 lives in shard 0
+    assert after.shards[0] is not view.shards[0]
 
 
 def test_serving_answers_match_jax():

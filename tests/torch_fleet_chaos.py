@@ -437,6 +437,21 @@ def _quality_model_message(gen: int, corrupted: bool = False) -> str:
           "rings must tell the story in order: canary-start -> "
           "quality-alarm -> canary-rollback")
 def fleet_canary(tmp: str, live: list) -> list[str]:
+    return _canary_run(tmp, live, kill_after_rollback=False)
+
+
+@scenario("canary-restart",
+          "fleet-canary, then SIGKILL the canary replica after its "
+          "rollback: the supervisor restarts it with the fleet's decisions "
+          "(promoted generation, vetoed generations), so it replays the "
+          "update topic, is readmitted by the front, and serves the "
+          "promoted generation, never the vetoed one; no client sees a "
+          "non-shed 5xx")
+def canary_restart(tmp: str, live: list) -> list[str]:
+    return _canary_run(tmp, live, kill_after_rollback=True)
+
+
+def _canary_run(tmp: str, live: list, kill_after_rollback: bool) -> list[str]:
     import http.client
     import subprocess
     import threading
@@ -507,7 +522,7 @@ def fleet_canary(tmp: str, live: list) -> list[str]:
         "oryx.fleet.replicas=2",
         f"oryx.fleet.base-port={base_port}",
         f"oryx.fleet.data-dir={data_dir}",
-        "oryx.fleet.supervisor.restart=false",
+        f"oryx.fleet.supervisor.restart={str(kill_after_rollback).lower()}",
         "oryx.fleet.front.probe-interval-sec=0.2",
         "oryx.fleet.front.eject-after=3",
         "oryx.fleet.canary.enabled=true",
@@ -778,6 +793,11 @@ def fleet_canary(tmp: str, live: list) -> list[str]:
                     f"{t_start} quality-alarm@{t_alarm} canary-rollback@"
                     f"{t_roll}"
                 )
+        if kill_after_rollback and not problems:
+            problems += _kill_canary_after_rollback(
+                sup, front, controller, canary_port, scrape_json, _scrape,
+                client, stop, counts,
+            )
     finally:
         stop.set()
         for t in threads:
@@ -785,4 +805,118 @@ def fleet_canary(tmp: str, live: list) -> list[str]:
         if front is not None:
             front.close()
         sup.stop()
+    return problems
+
+
+def _kill_canary_after_rollback(sup, front, controller, canary_port,
+                                scrape_json, scrape, client, stop,
+                                counts) -> list[str]:
+    """SIGKILL the rolled-back canary under traffic and hold its restart
+    to the fleet's decisions: readmitted, serving generation 1, never the
+    vetoed generation 2, with no non-shed 5xx at the front."""
+    import threading
+
+    problems: list[str] = []
+    if controller.gate_overlay() != {
+        "oryx.serving.model-gate.watermark": 1,
+        "oryx.serving.model-gate.vetoed": [2],
+    }:
+        problems.append(
+            f"controller's restart overlay {controller.gate_overlay()} "
+            "does not carry promoted 1 and vetoed [2]"
+        )
+    stop.clear()
+    before = dict(counts)
+    threads = [
+        threading.Thread(target=client, args=(front.port,))
+        for _ in range(2)
+    ]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        sup.kill(0)
+        restarted = False
+        deadline = time.time() + 30
+        while time.time() < deadline and not restarted:
+            sup.poll()
+            with sup._op_lock:
+                p = sup.procs[0]
+            restarted = p is not None and p.poll() is None and any(
+                "oryx.serving.model-gate.vetoed=[2]" in a for a in p.args
+            )
+            if not restarted:
+                time.sleep(0.2)
+        if not restarted:
+            problems.append(
+                "the supervisor never restarted the canary with the "
+                "fleet's vetoed generations"
+            )
+            return problems
+        ready = False
+        deadline = time.time() + 90
+        while time.time() < deadline and not ready:
+            try:
+                ready = scrape("127.0.0.1", canary_port, "/ready")[0] == 200
+            except OSError:
+                pass
+            if not ready:
+                time.sleep(0.3)
+        if not ready:
+            problems.append("the restarted canary never became ready")
+            return problems
+        readmitted = False
+        deadline = time.time() + 30
+        while time.time() < deadline and not readmitted:
+            r0 = next(r for r in front.replicas if r.id == "r0")
+            readmitted = r0.state == "up"
+            if not readmitted:
+                time.sleep(0.2)
+        if not readmitted:
+            problems.append(f"the front never readmitted r0 (state {r0.state})")
+        # ready at a generation, it replays on: wait until it has read its
+        # update topic to the end (the lag is sampled every 2 s), then
+        # watch a while; the vetoed generation 2 must never be served
+        served = set()
+        caught_up = False
+        deadline = time.time() + 30
+        while time.time() < deadline and not caught_up:
+            hz = scrape_json(canary_port, "/healthz")
+            served.add(hz.get("model_generation"))
+            caught_up = (hz.get("model_generation") == 1
+                         and hz.get("update_lag") == 0)
+            time.sleep(0.2)
+        watch = time.time() + 2.0
+        while time.time() < watch:
+            served.add(scrape_json(canary_port, "/healthz").get("model_generation"))
+            time.sleep(0.2)
+        if not caught_up or 2 in served:
+            problems.append(
+                f"restarted canary served generations {sorted(served, key=str)}"
+                f" (caught up: {caught_up}); want 1 and never 2"
+            )
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    hz = scrape_json(canary_port, "/healthz")
+    if hz.get("model_generation") != 1:
+        problems.append(
+            f"restarted canary serves generation {hz.get('model_generation')}"
+            ", want the promoted 1"
+        )
+    gate = hz.get("model_gate") or {}
+    if 2 in (gate.get("generations") or []) or 2 not in (
+            gate.get("vetoed") or []):
+        problems.append(
+            f"restarted canary adopted or forgot vetoed generation 2: {gate}"
+        )
+    if counts["non_shed_5xx"] != before["non_shed_5xx"] or (
+            counts["client_error"] != before["client_error"]):
+        problems.append(
+            f"non-shed 5xx or client errors through the kill: {before} -> "
+            f"{counts}"
+        )
+    if counts["ok"] <= before["ok"]:
+        problems.append("no request was answered through the kill")
     return problems
