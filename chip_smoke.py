@@ -111,8 +111,19 @@ Phases, each printing JSON lines:
    the same negatives); then two gloo ranks on the card: a Gram summed
    across the process boundary over CUDA tensors against the local Gram,
    a barrier, a host all-gather and a broadcast;
-6. lambda (the loop, at the 1M shape): one file:// bus, the als app's
-   classes from config. 1M events on the input topic; a full batch
+5c. attention (ops/attention.py; torch.matmul in f32 with TF32 off, no
+   hand kernel): ring and Ulysses attention at B = 1, H = 8, S = 16,384,
+   D = 128, f32, with the sequence split over a data axis of 4 cells on
+   the card, causal and not, beside the exact path: each call's time
+   (after a warm-up call) and peak card memory, every output within
+   2e-5 (atol and rtol) of float64 on 64 seeded query rows; then
+   oryx_tpu_torch.dryrun.dryrun_multichip(4) on the card (the mesh ALS
+   step and the TP trainer, sharded serving bit-identical to unsharded,
+   the fold-in batch, ring and Ulysses, the partitioned candidate search,
+   the chunked MODEL-REF relay, the row-sharded trainer);
+6. lambda (the loop, at the 1M shape's users and items): one file:// bus,
+   the als app's classes from config. 500,000 events on the input topic
+   (cut from 1M to fit phases 5c and 11); a full batch
    generation on the card; the serving layer started on the same topics
    (publish to /ready 200); /recommend for 64 users against the exact
    float64 top-10 of the published factors (recall@10 1.0, exact ties
@@ -147,7 +158,10 @@ Phases, each printing JSON lines:
    BatchLayer, the serving layer to /ready, 256 GET /assign against the
    float64 nearest published center, and 1,000 speed events around one
    center whose UP serving must apply (the center moves to
-   ClusterInfo.update's value);
+   ClusterInfo.update's value). The mesh leg: train_kmeans at the
+   bench's shape on a (2, 1) mesh of the card against one device from
+   the same generator seed: centers within 1e-4 of the largest center
+   entry, the SSE ratio beside it;
 8. rdf (torch ops on the card): build_and_evaluate_rdf at UCI-covertype
    shape (581,012 x 54, 7 classes, 10% label noise, 10% held out; 10
    trees, depth 10, 32 bins, 14 features a node, entropy): build seconds
@@ -159,7 +173,10 @@ Phases, each printing JSON lines:
    serving layer to /ready, 256 GET /predict and 256 GET
    /classificationDistribution against the host routing of the published
    forest (labels equal, probabilities within 1e-6), and 1,000 labeled
-   speed events whose UP counts serving must add to its leaves;
+   speed events whose UP counts serving must add to its leaves. The mesh
+   leg: grow_forest at the build's shape with the tree axis over a (2, 1)
+   mesh of the card against one device from the same seed: the same
+   forest, array for array;
 9. seq (run after phase 6 and before 7: it serves through the shared
    batcher, which closes after it; the GRU trainer has no hand kernel, its
    serving reaches the top-k kernels): build_and_evaluate_seq at its
@@ -178,7 +195,7 @@ Phases, each printing JSON lines:
    (recall@10 >= 0.99, the exact mode's floor: its candidates come from a
    bf16 scan, so a served item may differ from float64's only within that
    scan's rounding, 2^-7 of sum |h_i e_i|; values within 1e-4), a burst of
-   2,048 over HTTP (qps, p50/p99, all 200), the encode's
+   1,024 over HTTP (cut from 2,048; qps, p50/p99, all 200), the encode's
    own time per request, and 1,000 speed events folded on the card, one of
    them a never-seen item: serving must apply every UP row and recommend
    the new item. The kernel launches of the app's serving leg count
@@ -207,7 +224,8 @@ Phases, each printing JSON lines:
    `perf --url` and `loadtest` against the replicas; `flight --kind
    process-start --kind generation` (both replicas' starts and the
    generation). Then the fleet leg (`fleet-burst`, `fleet-kill`,
-   `fleet-canary` and `fleet` lines): phases 3-4's 1M x 50 catalog
+   `fleet-canary` and `fleet` lines): phases 3-4's catalog, its items
+   cut from 1M to 500,000 (x 50) to fit phases 5c and 11,
    published as MODEL-CHUNKs + MODEL-REF on a kafka:// topic of the same
    broker, `cli fleet --replicas 2 --policy hash --shards 2` with both
    replicas on the card, their views row-sharded 2 ways (each replica's
@@ -234,7 +252,22 @@ Phases, each printing JSON lines:
    `import-pmml` of a 100 x 20 k-means PMML served on the card (256
    /assign against the float64 nearest center). The line names the
    crc32c tier and whether the file:// buses ran through the native
-   appender.
+   appender;
+11. pod (phase 10's last leg, on its broker and its 250,000 events, on
+   topics of its own): `python -m oryx_tpu_torch.cli pod --compute 2
+   --serving` with two ALS candidates (lambda 0.01 and 500) searched in
+   parallel by process group (oryx.ml.eval.parallelism = 2), both compute
+   ranks on the card over gloo: both ranks joined, the search's two
+   groups, one MODEL-REF and one TRACE on the pod's update topic (the
+   leader alone publishes), the winner equal to a one-process serial
+   search of the leader's persisted window with the same seeds (lambda
+   equal, factors within the mesh parity tolerance), the serving child's
+   /ready, 512 exact requests on it and 512 quantized on one more
+   serving process on the pod's topic (qps, p50/p99, recall@10 against
+   float64, each process's kernel launches, which count toward the
+   kernels line), the generation's seconds; then compute rank 1
+   SIGKILLed: the pod exits nonzero within 30 s and its serving child
+   with it.
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. With --ab-parent DIR the script runs the
@@ -1853,6 +1886,13 @@ def wedge_phase(torch, np, path, users) -> dict:
 # 10 sweeps; and its 1M warm-up shape (bench.py:1184)
 TRAIN_SHAPE = (162_000, 59_000, 25_000_000)
 SMALL_SHAPE = (6_000, 3_700, 1_000_000)
+# phase 6's loop: SMALL_SHAPE's users and items, its events cut from 1M to
+# 500,000 to leave the time phases 5c and 11 take: with 1M events (and the
+# seq burst at 2,048) the whole smoke took 1,013.9 s on an H100 80GB HBM3
+# at 700 W against the 950 s it is held to, phase 6 46.1 s of that more
+# than at 500,000 (at 250,000 the delta generation's window passes
+# max-drift-fraction of the state)
+LAMBDA_SHAPE = (6_000, 3_700, 500_000)
 TRAIN_HP = {"features": 50, "iterations": 10, "lam": 0.01, "alpha": 1.0,
             "seed": 7, "holdout_p": 0.02}
 MIN_AUC = 0.87  # tests/test_quality_gate.py floor
@@ -2206,6 +2246,98 @@ def collectives_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: sequence-parallel attention and the multi-device dry run
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPE = (1, 8, 16_384, 128)  # B, H, S, D; f32
+ATTN_CELLS = 4  # the "data" axis the sequence splits over, all on the card
+ATTN_ROWS = 64  # seeded query rows held to a float64 computation
+# f32 products (TF32 off) and an f32 softmax against float64: the JAX
+# package's attention tests hold the ring to the exact path at 2e-5
+ATTN_TOL = {"atol": 2e-5, "rtol": 2e-5}
+DRYRUN_CELLS = 4
+
+
+def attention_rows_f64(torch, q, k, v, rows, causal: bool):
+    """Float64 attention of query rows ``rows`` against every key."""
+    q64 = q[..., rows, :].double()
+    s = torch.matmul(q64, k.double().transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    if causal:
+        cols = torch.arange(k.shape[-2], device=s.device)
+        keep = cols[None, :] <= torch.as_tensor(rows, device=s.device)[:, None]
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1), v.double())
+
+
+def attention_phase(torch, np, shape=ATTN_SHAPE, cells=ATTN_CELLS,
+                    rows=ATTN_ROWS, dryrun_cells=DRYRUN_CELLS,
+                    device="cuda") -> dict:
+    """Phase 5c: ring and Ulysses attention (ops/attention.py) with the
+    sequence over a data axis of ``cells`` cells on the card, causal and
+    not, TF32 off, each call timed (host clock around a synchronised call,
+    after one warm-up call) with its peak card memory, beside the exact
+    path's; all three held against float64 on ``rows`` seeded query rows.
+    Then dryrun_multichip over ``dryrun_cells`` cells on the card."""
+    from oryx_tpu_torch.dryrun import dryrun_multichip
+    from oryx_tpu_torch.ops.attention import attention, ring_attention, ulysses_attention
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS, MeshSpec, make_mesh
+
+    cuda = device == "cuda"
+    b, h, s, d = shape
+    out = {"phase": "attention", "shape": {"B": b, "H": h, "S": s, "D": d},
+           "dtype": "float32", "cells": cells, "rows_checked": rows,
+           "tolerance": ATTN_TOL, "tf32": torch.backends.cuda.matmul.allow_tf32}
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    mesh = make_mesh(MeshSpec(cells, 1), [device] * cells)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    q, k, v = (torch.randn(shape, generator=g).to(device) for _ in range(3))
+    picked = sorted(np.random.default_rng(SEED + 40).choice(s, rows, replace=False).tolist())
+
+    def whole(res):
+        if isinstance(res, torch.Tensor):
+            return res
+        return mesh.all_gather(res.shards, DATA_AXIS, dim=res.dim)[mesh.cells()[0]]
+
+    calls = {"exact": lambda c: attention(q, k, v, causal=c),
+             "ring": lambda c: ring_attention(q, k, v, mesh, causal=c),
+             "ulysses": lambda c: ulysses_attention(q, k, v, mesh, causal=c)}
+    for causal in (False, True):
+        ref = attention_rows_f64(torch, q, k, v, picked, causal)
+        line = {}
+        for name, fn in calls.items():
+            fn(causal)  # warm-up
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = fn(causal)
+            if cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+            got = whole(res)[..., picked, :].double()
+            del res
+            err = (got - ref).abs()
+            lim = ATTN_TOL["atol"] + ATTN_TOL["rtol"] * ref.abs()
+            line[name] = {"ms": ms, "peak_mem_bytes": peak,
+                          "max_abs_err": float(err.max()),
+                          "worst_err_over_tol": float((err / lim).max())}
+            check(bool((err <= lim).all()),
+                  f"{name} attention (causal={causal}) off float64 by "
+                  f"{float(err.max())}")
+        out["causal" if causal else "full"] = line
+    del q, k, v
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dry = dryrun_multichip(dryrun_cells, device=device)
+    out["dryrun"] = {**dry, "seconds": time.monotonic() - t0}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the lambda loop (batch -> serving -> speed -> batch) on one bus
 # ---------------------------------------------------------------------------
 
@@ -2295,7 +2427,7 @@ def http_json(port: int, path: str, doc: dict) -> dict:
 
 
 def lambda_phase(torch, np, T, root: Path, device="cuda",
-                 shape=SMALL_SHAPE, speed_events=SPEED_EVENTS,
+                 shape=LAMBDA_SHAPE, speed_events=SPEED_EVENTS,
                  delta_events=DELTA_EVENTS) -> dict:
     """Phase 6: the whole loop on one file:// bus with the als app's
     classes (apps/spi.py), each layer built from config."""
@@ -2764,9 +2896,13 @@ def plain_wordcount(lines: list) -> dict:
     return {w: len(o) for w, o in others.items() if o}
 
 
-# -- phase 10's fleet leg: `cli fleet` over card replicas at 1M x 50 ---------
+# -- phase 10's fleet leg: `cli fleet` over card replicas at 500k x 50 -------
 
 FLEET_REPLICAS = 2
+# the fleet's catalog: the serving catalog's users and width, its items
+# cut from 1M to 500,000 to fit phases 5c and 11 (each of the leg's four
+# generations is published, deflated, fetched and loaded at this size)
+FLEET_SHAPE = (500_000, N_USERS, FEATURES)
 FLEET_SHARDS = 2  # the exact fleet's device-view shards per replica
 FLEET_PROBE_S = 0.5  # the front's /healthz probe interval in this leg
 FLEET_CLIENTS = 2  # in-process client threads behind the kill and canary legs
@@ -2983,7 +3119,7 @@ def replica_pid(fleet_pid: int, rid: str) -> int:
 
 
 def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
-              device="cuda", shape=(N_ITEMS, N_USERS, FEATURES),
+              device="cuda", shape=FLEET_SHAPE,
               burst=N_REQUESTS) -> dict:
     """`python -m oryx_tpu_torch.cli fleet --replicas 2 --policy hash` on the
     card at the serving catalog's width, its model published as MODEL-CHUNKs
@@ -3340,6 +3476,256 @@ def fleet_leg(torch, np, root: Path, srv, broker, start, stop, alive,
     return out
 
 
+POD_COMPUTE = 2  # compute ranks of the pod, both on the card (gloo)
+# the pod's batch interval: its first generation starts this long after
+# the members start, and the next one no sooner than this after the first
+# published, so the leg's bursts read one generation
+POD_INTERVAL_S = 15
+POD_LAMBDAS = [0.01, 500.0]
+POD_REQUESTS = 512
+POD_KILL_LIMIT_S = 30  # a SIGKILLed compute rank ends the pod within this
+POD_INPUT_PARTITIONS = 4
+
+
+def log_wall(line: str) -> float:
+    """The wall-clock seconds of a CLI log line's asctime prefix."""
+    import datetime as _dt
+
+    stamp = _dt.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+    return stamp.timestamp()
+
+
+def pod_leg(np, root: Path, srv, broker, conf: Path, events: list, start,
+            stop, alive, procs: dict, device="cuda",
+            requests=POD_REQUESTS) -> dict:
+    """Phase 11 (the last leg of phase 10, on its broker): `cli pod
+    --compute 2 --serving` over phase 10's events on topics of its own,
+    both compute ranks on the card joined over gloo, two ALS candidates
+    (lambda 0.01 and 500) searched in parallel by process group. Checks:
+    both ranks joined; two groups built one candidate each; one MODEL-REF
+    and one TRACE on the pod's update topic (the leader alone publishes);
+    the winner equal to a one-process serial search of the same window,
+    each candidate seeded as a member seeds it (the same lambda; every factor within the mesh parity
+    tolerance); the serving child's /ready; 512 exact requests on it and
+    512 quantized ones on a second serving process on the same topic
+    (qps, p50/p99, recall@10 against float64, each one's kernel
+    launches); then a compute rank SIGKILLed tears the pod down, rc != 0,
+    within POD_KILL_LIMIT_S."""
+    from oryx_tpu_torch.apps.als.batch import ALSUpdate
+    from oryx_tpu_torch.bus.broker import topics
+    from oryx_tpu_torch.common.artifact import ModelArtifact
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.common.ioutil import choose_free_port
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.layers.datastore import load_all_data
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cuda = device == "cuda"
+    logs = root / "logs"
+    t_leg = time.monotonic()
+    out = {"phase": "pod", "compute": POD_COMPUTE, "events": len(events),
+           "interval_s": POD_INTERVAL_S, "lambdas": POD_LAMBDAS}
+    port, qport = choose_free_port(), choose_free_port()
+    sets = {
+        "oryx.id": "smoke-pod",
+        "oryx.input-topic.message.topic": "PodInput",
+        "oryx.update-topic.message.topic": "PodUpdate",
+        "oryx.batch.storage.data-dir": str(root / "pod-data"),
+        "oryx.batch.storage.model-dir": str(root / "pod-model"),
+        "oryx.batch.streaming.generation-interval-sec": POD_INTERVAL_S,
+        "oryx.ml.eval.candidates": 2,
+        "oryx.ml.eval.parallelism": 2,
+        "oryx.ml.eval.hyperparam-search": "grid",
+        "oryx.als.hyperparams.lambda": POD_LAMBDAS,
+        "oryx.serving.api.processes": 1,
+        "oryx.serving.api.port": port,
+    }
+    flags = ["--app", "als", "--conf", str(conf)]
+    for k, v in sets.items():
+        flags += ["--set", f"{k}={json.dumps(v)}"]
+    topics.maybe_create(srv.uri, "PodInput", POD_INPUT_PARTITIONS)
+    topics.maybe_create(srv.uri, "PodUpdate", 1)
+    t0 = time.monotonic()
+    broker.send_batch("PodInput", [(None, e) for e in events])
+    check(sum(broker.end_offsets("PodInput")) == len(events), "pod input short")
+    out["produce_s"] = time.monotonic() - t0
+    # the leader's group reads from the earliest offset; the other member's
+    # group of its own is moved to the leader's start by the pod window
+    broker.commit_offsets("OryxGroup-smoke-pod-batch", "PodInput",
+                          {p: 0 for p in range(POD_INPUT_PARTITIONS)})
+
+    t0 = time.monotonic()
+    pod = start("pod", "pod", "--compute", str(POD_COMPUTE), "--serving", *flags)
+    start("pod-quantized", "serving", *flags, "--set",
+          "oryx.serving.api.score-mode=quantized", "--set",
+          f"oryx.serving.api.port={qport}")
+    upd = TopicLog(broker, "PodUpdate")
+    t_ref = n_rows = None
+    while time.monotonic() - t0 < 600:
+        alive("the pod's generation ran")
+        upd.pull()
+        keys = upd.keys()
+        if t_ref is None and "MODEL-REF" in keys:
+            t_ref = time.monotonic() - t0
+            art = ModelArtifact.read(next(m for _, k, m in upd.rows
+                                          if k == "MODEL-REF"))
+            n_rows = (len(art.get_extension_list("XIDs"))
+                      + len(art.get_extension_list("YIDs")))
+        if t_ref is not None and keys.count("UP") >= n_rows:
+            break
+        time.sleep(0.1)
+    t_pub = time.monotonic()
+    check(t_ref is not None and keys.count("UP") >= n_rows,
+          f"the pod published {len(keys)} records")
+    gen_ts = int(Path(next(m for _, k, m in upd.rows if k == "MODEL-REF")).name)
+    out["generation"] = {"ts": gen_ts, "start_to_model_ref_s": t_ref,
+                         "start_to_published_s": t_pub - t0,
+                         "chunks": keys.count("MODEL-CHUNK"),
+                         "up_rows": keys.count("UP")}
+
+    # the float64 ranking of the published UP rows
+    x, y, known = {}, {}, {}
+    for _, k, m in upd.rows:
+        if k == "UP":
+            row = json.loads(m)
+            (x if row[0] == "X" else y)[row[1]] = row[2]
+            if row[0] == "X":
+                known[row[1]] = set(row[3])
+    yids = sorted(y)
+    ymat = np.asarray([y[i] for i in yids], np.float64)
+    col = {i: j for j, i in enumerate(yids)}
+    probe = [str(u) for u in np.random.default_rng(SEED + 16).choice(
+        sorted(x), requests, replace=False)]
+    ref = {}
+    for u in probe:
+        sc = ymat @ np.asarray(x[u], np.float64)
+        for i in known[u]:
+            sc[col[i]] = -np.inf
+        ref[u] = {yids[j] for j in np.argsort(-sc, kind="stable")[:HOW_MANY]}
+    paths = [f"/recommend/{u}?howMany={HOW_MANY}" for u in probe]
+
+    # the serving child and the quantized process, each to /ready, a burst
+    out["serving"] = {}
+    launches = {"topk_dot_partial": 0, "topk_merge": 0}
+    by_type = {"float32": 0, "bfloat16": 0, "int8": 0}
+    for mode, p_ in (("exact", port), ("quantized", qport)):
+        t1 = time.monotonic()
+        while time.monotonic() - t1 < 300:
+            alive(f"the pod's {mode} serving loaded")
+            if _status(p_, "/ready") == 200:
+                break
+            time.sleep(0.05)
+        check(_status(p_, "/ready") == 200, f"pod {mode} serving never ready")
+        line = {"ready_after_publish_s": time.monotonic() - t_pub}
+        rows = http_burst(p_, paths)
+        check(all(r[1] == 200 for r in rows),
+              f"pod {mode}: non-200 {sorted({r[1] for r in rows if r[1] != 200})}")
+        lat = sorted((r[3] - r[2]) * 1e3 for r in rows)
+        wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+        hits = sum(len(ref[probe[r[0]]] & set(r[4])) for r in rows)
+        recall = hits / (HOW_MANY * len(rows))
+        check(recall >= MIN_RECALL[mode], f"pod {mode} recall@10 {recall}")
+        rep = replica_scrape(p_, 1)
+        (only,) = rep.values()
+        line.update({"requests": len(rows), "qps": len(rows) / wall,
+                     "p50_ms": quantile(lat, 0.5), "p99_ms": quantile(lat, 0.99),
+                     "recall_at_10": recall, "launches": only["launches"],
+                     "partial_launches_by_type": only["by_type"]})
+        for kk in launches:
+            launches[kk] += only["launches"][kk]
+        for kk in by_type:
+            by_type[kk] += only["by_type"][kk]
+        out["serving"][mode] = line
+    if cuda:
+        check(all(v > 0 for v in launches.values()) and by_type["bfloat16"] > 0
+              and by_type["int8"] > 0, f"the pod's serving launched {launches} {by_type}")
+    out["launches"], out["partial_launches_by_type"] = launches, by_type
+    upd.pull()
+    keys = upd.keys()
+    out["published"] = {k: keys.count(k) for k in ("MODEL", "MODEL-REF", "TRACE")}
+    check(keys.count("MODEL") + keys.count("MODEL-REF") == 1
+          and keys.count("TRACE") == 1 and keys.count("UP") == n_rows,
+          f"not one leader publish: {out['published']}, {keys.count('UP')} UP rows")
+
+    # the members' logs: both joined, two groups, one candidate each
+    log = (logs / "pod.log").read_text(errors="replace").splitlines()
+    joined = sorted(ln.split("process ")[-1] for ln in log
+                    if "joined process group (gloo)" in ln)
+    searches = [ln for ln in log if "pod parallel candidate search" in ln]
+    evals = [ln for ln in log if "-> eval" in ln]
+    out["joined"] = joined
+    out["groups"] = [ln.split("; ", 1)[1] for ln in searches]
+    check(joined == [f"{r}/{POD_COMPUTE}" for r in range(POD_COMPUTE)],
+          f"ranks joined: {joined}")
+    check(len(searches) == POD_COMPUTE and len(evals) == POD_COMPUTE
+          and all("2 groups over 2 processes" in ln for ln in searches),
+          f"the process-group search: {searches} {evals}")
+    out["search_s"] = max(log_wall(e) for e in evals) - min(log_wall(ln) for ln in searches)
+
+    # a compute rank SIGKILLed: the pod tears down, rc != 0
+    kids = [int(p_) for p_ in subprocess.run(
+        ["pgrep", "-P", str(pod.pid)], capture_output=True, text=True).stdout.split()]
+    rank1 = [k for k in kids if "process-id=1" in
+             Path(f"/proc/{k}/cmdline").read_bytes().decode(errors="replace")]
+    check(len(rank1) == 1, f"compute rank 1 among {kids}")
+    t1 = time.monotonic()
+    os.kill(rank1[0], signal.SIGKILL)
+    try:
+        rc = pod.wait(timeout=POD_KILL_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    procs.pop("pod", None)
+    out["kill"] = {"rc": rc, "teardown_s": time.monotonic() - t1,
+                   "serving_child_gone": _status(port, "/ready") is None}
+    check(rc not in (None, 0), f"the pod did not tear down: rc {rc}")
+    check(out["kill"]["serving_child_gone"], "the pod's serving child outlived it")
+    stop("pod-quantized")
+
+    # the same window and seeds in one process, searched serially on the
+    # group's mesh shape: the generation seeded as a pod member seeds it
+    # (the pod config), each candidate from MLUpdate._pod_candidate_seed
+    window = load_all_data(str(root / "pod-data"))
+    check(len(window) == len(events), f"the leader persisted {len(window)} records")
+    cfg = load_config(str(conf), overlay={
+        **sets, "oryx.batch.storage.model-dir": str(root / "pod-ref"),
+        "oryx.ml.eval.parallelism": 1,
+        "oryx.compute.distributed.num-processes": POD_COMPUTE})
+
+    class _SerialPodSearch(ALSUpdate):
+        def _build_one(self, i, *a):
+            RandomManager.use_test_seed(self._pod_candidate_seed(gen_ts, i))
+            return super()._build_one(i, *a)
+
+    class _Sink:
+        topic = "none"
+
+        def send(self, key, message):
+            pass
+
+        def send_batch(self, records):
+            pass
+
+    t1 = time.monotonic()
+    _SerialPodSearch(cfg, device=device,
+                     mesh=make_mesh(MeshSpec(1, 1), [device])
+                     ).run_update(gen_ts, window, [], str(root / "pod-ref"), _Sink())
+    out["one_process_search_s"] = time.monotonic() - t1
+    pod_art = ModelArtifact.read(root / "pod-model" / str(gen_ts))
+    ref_art = ModelArtifact.read(root / "pod-ref" / str(gen_ts))
+    lam = pod_art.extensions.get("lambda")
+    check(lam == ref_art.extensions.get("lambda") == "0.01",
+          f"pod winner lambda {lam}, one process {ref_art.extensions.get('lambda')}")
+    diffs = {}
+    for t in ("X", "Y"):
+        a, b = np.asarray(pod_art.tensors[t]), np.asarray(ref_art.tensors[t])
+        check(a.shape == b.shape, f"{t} {a.shape} vs {b.shape}")
+        diffs[t] = float(np.abs(a - b).max())
+        check(np.allclose(a, b, **MESH_TOL), f"pod {t} off the one-process search by {diffs[t]}")
+    out["winner"] = {"lambda": lam, "max_factor_diff": diffs, "tolerance": MESH_TOL}
+    out["seconds"] = time.monotonic() - t_leg
+    return out
+
+
 def _status(port: int, path: str):
     """The status of GET path, or None while nothing listens."""
     try:
@@ -3352,7 +3738,7 @@ def kafka_phase(np, root: Path, device="cuda", shape=KAFKA_SHAPE,
                 burst=KAFKA_BURST, speed_events=KAFKA_SPEED_EVENTS,
                 wordcount_lines=WORDCOUNT_LINES, centers=PMML_CENTERS,
                 assign_requests=PMML_ASSIGN, max_message=KAFKA_MAX_MESSAGE,
-                fleet_shape=(N_ITEMS, N_USERS, FEATURES)) -> dict:
+                fleet_shape=FLEET_SHAPE) -> dict:
     """Phase 10: the ALS loop deployed as separate `python -m
     oryx_tpu_torch.cli` processes joined only by kafka:// topics on one
     test broker (tests/torch_kafka_testbroker.py) on 127.0.0.1; then the
@@ -3685,7 +4071,7 @@ def kafka_phase(np, root: Path, device="cuda", shape=KAFKA_SHAPE,
         out["flight"] = {"events": len(evs), "replicas": sorted(k for k in starts if k)}
         stop("serving-quantized")
         stop("speed")
-        # 6b. the fleet: `cli fleet` over card replicas at 1M x 50, its
+        # 6b. the fleet: `cli fleet` over card replicas at 500k x 50, its
         # model on a kafka:// topic of this broker
         import torch
 
@@ -3793,6 +4179,17 @@ def kafka_phase(np, root: Path, device="cuda", shape=KAFKA_SHAPE,
                        "assign_requests": assign_requests, "near_tie_points": ties,
                        "device": str(manager.device), "seconds": time.monotonic() - t0}
 
+        # 9. the pod (phase 11) over the same events, on topics of its own
+        pod = pod_leg(np, root, srv, broker, conf, events, start, stop, alive,
+                      procs, device=device, requests=min(POD_REQUESTS, burst))
+        emit(pod)
+        out["pod"] = {k: pod[k] for k in ("seconds", "launches",
+                                           "partial_launches_by_type")}
+        for k in launches:
+            launches[k] += pod["launches"][k]
+        for k in by_type:
+            by_type[k] += pod["partial_launches_by_type"][k]
+
         out["crc32c_tier"] = {"crc32c_ext": "google_crc32c", "crc32c_native": "native",
                               "_crc32c_py": "python"}[kafkawire._crc32c_impl.__name__]
         # the file log resolves its tier once a process: the same for the
@@ -3824,6 +4221,68 @@ NEAR_TIE_D2 = 1e-5  # of |x|^2 + max |c|^2: the f32 expansion's roundoff
 KMEANS_APP_POINTS = 200_000
 APP_REQUESTS = 256
 APP_SPEED_EVENTS = 1_000
+
+
+MESH_LEG = (2, 1)  # the (data, model) mesh of phases 7 and 8's mesh legs, on the card
+# k-means on the mesh against one device from the same init: the sums run
+# in another order (LLOYD_RTOL's scale: of the largest center entry)
+KMEANS_MESH_RTOL = 1e-4
+
+
+def kmeans_mesh_leg(torch, np, points, shape, device="cuda") -> dict:
+    """train_kmeans on a MESH_LEG mesh of the card against one device, the
+    same points and the same generator seed: centers within
+    KMEANS_MESH_RTOL of the largest center entry, the SSE ratio beside it."""
+    from oryx_tpu_torch.ops.kmeans import sum_squared_error, train_kmeans
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(*MESH_LEG), [device] * (MESH_LEG[0] * MESH_LEG[1]))
+    kw = dict(k=shape["k"], iterations=shape["iterations"])
+    runs = {}
+    for name, extra in (("single", {"device": device}), ("mesh", {"mesh": mesh})):
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        t0 = time.perf_counter()
+        runs[name] = train_kmeans(points, generator=gen, **kw, **extra)
+        runs[name + "_s"] = time.perf_counter() - t0
+    one, on_mesh = runs["single"], runs["mesh"]
+    scale = float(np.abs(one.centers).max())
+    diff = float(np.abs(on_mesh.centers - one.centers).max())
+    sse_one = sum_squared_error(points, one.centers, device=device)
+    sse_mesh = sum_squared_error(points, on_mesh.centers, device=device)
+    check(diff <= KMEANS_MESH_RTOL * scale,
+          f"mesh k-means centers {diff} off single-device (scale {scale})")
+    return {"mesh": list(MESH_LEG), "single_s": runs["single_s"],
+            "mesh_s": runs["mesh_s"], "max_center_diff": diff,
+            "center_scale": scale, "rtol": KMEANS_MESH_RTOL,
+            "counts_equal": bool((on_mesh.counts == one.counts).all()),
+            "sse_ratio_mesh_to_single": sse_mesh / sse_one}
+
+
+def rdf_mesh_leg(torch, np, data, y, shape, device="cuda") -> dict:
+    """grow_forest with the tree axis over a MESH_LEG mesh of the card
+    against one device, from the same test seed: the same forest, array
+    for array."""
+    from oryx_tpu_torch.common.rng import RandomManager
+    from oryx_tpu_torch.ops.rdf import grow_forest
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(*MESH_LEG), [device] * (MESH_LEG[0] * MESH_LEG[1]))
+    kw = dict(num_trees=shape["num_trees"], max_depth=shape["max_depth"],
+              impurity="entropy", n_classes=7, feature_subset=14)
+    out = {"mesh": list(MESH_LEG)}
+    forests = {}
+    for name, extra in (("single", {"device": device}), ("mesh", {"mesh": mesh})):
+        RandomManager.use_test_seed(SEED + 42)
+        t0 = time.perf_counter()
+        forests[name] = grow_forest(data, y, **kw, **extra)
+        out[name + "_s"] = time.perf_counter() - t0
+    a, b = forests["single"], forests["mesh"]
+    same = {f: bool(np.array_equal(getattr(a, f), getattr(b, f)))
+            for f in ("feature", "split_left", "class_counts",
+                      "feature_importances")}
+    out["identical"] = same
+    check(all(same.values()), f"mesh forest differs from single-device: {same}")
+    return out
 
 
 def build_profile(torch, fn) -> dict:
@@ -3984,6 +4443,7 @@ def kmeans_phase(torch, np, root: Path, device="cuda", shape=KMEANS_SHAPE,
         out["profile"] = build_profile(torch, lambda: train_kmeans(
             points, k=shape["k"], iterations=shape["iterations"], device=device))
     del rep
+    out["mesh"] = kmeans_mesh_leg(torch, np, points, shape, device=device)
 
     dims = shape["dims"]
     cfg, bus = app_config(root, "kmeans", {
@@ -4165,6 +4625,8 @@ def rdf_phase(torch, np, root: Path, device="cuda", shape=RDF_SHAPE,
             rep.data, rep.y_train, num_trees=shape["num_trees"],
             max_depth=shape["max_depth"], impurity="entropy", n_classes=7,
             feature_subset=14, device=device))
+    out["mesh"] = rdf_mesh_leg(torch, np, rep.data, rep.y_train, shape,
+                               device=device)
 
     # the app: covertype-width lines (54 numeric features and the class)
     rng = np.random.default_rng(SEED + 8)
@@ -4304,7 +4766,7 @@ SEQ_APP = {"n_items": 50_000, "n_sessions": 20_000, "session_len": 12, "epochs":
 SEQ_VALUE_ATOL = 1e-4  # served scores against float64
 SEQ_BF16_REL = 2.0 ** -7  # the bf16 scan's rounding: 2^-9 per operand, two
 # operands, two scores compared
-SEQ_BURST = 2048
+SEQ_BURST = 1024  # cut from 2,048 (38.3 s against 16.2 s) to fit phases 5c and 11
 
 
 def gru64(np, params: dict, vecs, mask):
@@ -4857,6 +5319,11 @@ def main() -> int:
     emit(meshed)
     torch.cuda.empty_cache()
     emit(collectives_phase(torch))
+    t0 = time.monotonic()
+    attended = attention_phase(torch, np)
+    attended["seconds"] = time.monotonic() - t0
+    emit(attended)
+    torch.cuda.empty_cache()
 
     t0 = time.monotonic()
     root = Path(__file__).resolve().parent / "build" / "smoke-lambda"

@@ -334,7 +334,7 @@ class ALSUpdate(MLUpdate):
                 check_every=self.train_check_every,
                 # shards (when configured and applicable) replace the
                 # configured mesh for the build
-                mesh=None if shard_mesh is not None else self.training_mesh(),
+                mesh=None if shard_mesh is not None else self._build_mesh(),
                 shard_mesh=shard_mesh,
                 device=self.device,
             )
@@ -490,14 +490,20 @@ class ALSUpdate(MLUpdate):
     def _shard_mesh(self):
         """Model-axis mesh for row-sharded bucketed training, or None.
 
-        An explicit tensor-parallel training mesh (model axis > 1: the
-        operator already chose a factor layout) wins; otherwise
+        A candidate sub-mesh (partitioned parallel search) and an explicit
+        tensor-parallel training mesh (model axis > 1: the operator
+        already chose a factor layout) win; otherwise
         ``oryx.batch.train.shards > 1`` replaces the configured
         data-parallel mesh for the build. The shard count clamps to the
         devices that exist (``shardspec.local_devices`` of the update's
         device), so a 2-shard config on a one-card host trains unsharded
         instead of failing the build."""
         if self.train_shards <= 1:
+            return None
+        from oryx_tpu_torch.parallel.submesh import current_candidate_mesh
+
+        if current_candidate_mesh() is not None:
+            # the candidate owns only its slice of the devices
             return None
         from oryx_tpu_torch.parallel.mesh import MODEL_AXIS, MeshSpec, make_mesh
         from oryx_tpu_torch.parallel.shardspec import local_devices
@@ -533,7 +539,7 @@ class ALSUpdate(MLUpdate):
             device=self.device,
             # shards replace the configured mesh, so the build takes the
             # row-sharded bucketed trainer
-            mesh=None if shard_mesh is not None else self.training_mesh(),
+            mesh=None if shard_mesh is not None else self._build_mesh(),
             features=int(hyperparams["features"]),
             lam=float(hyperparams["lambda"]),
             alpha=float(hyperparams["alpha"]),

@@ -3,7 +3,8 @@ oryx_tpu/apps/kmeans/batch.py).
 
 Replaces KMeansUpdate (app/oryx-app-mllib .../kmeans/KMeansUpdate.java):
 vectorize via InputSchema, train on the card (ops/kmeans.py Lloyd's with
-k-means|| init), publish an artifact holding the centers tensor + cluster
+k-means|| init; on a mesh when one is given or configured,
+``oryx.compute.mesh.*``), publish an artifact holding the centers tensor + cluster
 sizes, and evaluate with the configured strategy over train+test
 (KMeansUpdate.java:135-173; DB and SSE negated so higher = better).
 """
@@ -28,12 +29,18 @@ from oryx_tpu_torch.apps.kmeans.common import KMeansConfig, vectorize_rows
 from oryx_tpu_torch.apps.schema import InputSchema
 
 class KMeansUpdate(MLUpdate):
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh=None):
         super().__init__(config)
         self.kmeans = KMeansConfig.from_config(config)
         self.schema = InputSchema(config)
         # the card, unless the caller names the CPU (the tests do)
         self.device = resolve_device(device)
+        if mesh is None:
+            from oryx_tpu_torch.parallel.distributed import mesh_from_config
+
+            # None on one device with no oryx.compute.mesh.* shape
+            mesh = mesh_from_config(config, device=self.device)
+        self.mesh = mesh
 
     def hyperparam_ranges(self) -> dict[str, Any]:
         return {"k": self.kmeans.k}
@@ -49,6 +56,7 @@ class KMeansUpdate(MLUpdate):
             k=int(hyperparams["k"]),
             iterations=self.kmeans.iterations,
             init=self.kmeans.init_strategy,
+            mesh=self._build_mesh(),
             runs=self.kmeans.runs,
             device=self.device,
         )

@@ -4,7 +4,8 @@ oryx_tpu/apps/rdf/batch.py).
 Replaces RDFUpdate (app/oryx-app-mllib .../batch/mllib/rdf/RDFUpdate.java):
 build categorical value encodings from all training data (:205-231),
 encode + quantile-bin predictors, grow the histogram forest on the card
-(ops/rdf.py), and evaluate accuracy (classification) or -RMSE (regression)
+(ops/rdf.py; its tree axis over a mesh's "data" axis when one is given or
+configured), and evaluate accuracy (classification) or -RMSE (regression)
 on the held-out split (:179-205), its rows routed on the card. Hyperparameters match the reference's
 tuned set: max-split-candidates, max-depth, impurity (:100-105).
 """
@@ -45,7 +46,7 @@ def _parse_rows(data: Sequence[KeyMessage]) -> list[list[str]]:
 
 
 class RDFUpdate(MLUpdate):
-    def __init__(self, config: Config, device=None):
+    def __init__(self, config: Config, device=None, mesh=None):
         super().__init__(config)
         self.rdf = RDFConfig.from_config(config)
         self.schema = InputSchema(config)
@@ -53,6 +54,12 @@ class RDFUpdate(MLUpdate):
             raise ValueError("RDF requires a target feature")
         # the card, unless the caller names the CPU (the tests do)
         self.device = resolve_device(device)
+        if mesh is None:
+            from oryx_tpu_torch.parallel.distributed import mesh_from_config
+
+            # None on one device with no oryx.compute.mesh.* shape
+            mesh = mesh_from_config(config, device=self.device)
+        self.mesh = mesh
 
     def hyperparam_ranges(self) -> dict[str, Any]:
         return {
@@ -104,6 +111,7 @@ class RDFUpdate(MLUpdate):
             impurity=impurity,
             n_classes=n_classes,
             feature_subset=self.rdf.feature_subset,
+            mesh=self._build_mesh(),
             device=self.device,
         )
         return forest_to_artifact(

@@ -8,6 +8,7 @@ copy of oryx_tpu/cli.py):
   python -m oryx_tpu_torch.cli tail    --conf oryx.conf   tail input+update topics
   python -m oryx_tpu_torch.cli input   --conf oryx.conf   stdin lines -> input topic
   python -m oryx_tpu_torch.cli fleet   --conf oryx.conf   N serving replicas + front
+  python -m oryx_tpu_torch.cli pod     --conf oryx.conf   a multi-process batch pod
   python -m oryx_tpu_torch.cli config | import-pmml | flight | perf | loadtest
 
 The three layers run on the CUDA card (each raises without one) unless
@@ -19,9 +20,10 @@ overrides a config key (repeatable); ``--app <name>`` (als | kmeans | rdf
 ``oryx.serving.api.processes = N > 1`` the serving command supervises N
 replica processes sharing one port through SO_REUSEPORT, each opening the
 card itself; ``fleet`` runs N replicas on distinct ports behind the fleet
-front (fleet/), each opening the card itself too. The JAX package's
-``pod`` command is not ported yet (ROADMAP queue 1 item 11) and exits
-with a message.
+front (fleet/), each opening the card itself too. ``pod`` runs the batch
+layer as N compute processes joined into one ``torch.distributed`` process
+group (plus optional single-process speed and serving tiers), on one host
+or, with ``--coordinator``, across hosts.
 """
 
 from __future__ import annotations
@@ -35,11 +37,6 @@ import sys
 import time
 
 from oryx_tpu_torch.common.config import Config, load_config
-
-_NOT_PORTED = {
-    "pod": "ROADMAP queue 1 item 11",
-}
-
 
 def _parse_args(argv):
     p = argparse.ArgumentParser(prog="oryx_tpu_torch", description=__doc__)
@@ -77,6 +74,34 @@ def _parse_args(argv):
         help="fleet: device-view shards per replica (overrides "
         "oryx.fleet.shards; oryx.serving.api.sync.shard-count of every "
         "replica)",
+    )
+    p.add_argument(
+        "--compute", type=int, default=1,
+        help="pod: total compute (batch) processes of the torch.distributed "
+        "process group, across all hosts",
+    )
+    p.add_argument(
+        "--local-start", type=int, default=None,
+        help="pod: first compute process index THIS host runs (default: "
+        "0 — a single-host pod runs all of them)",
+    )
+    p.add_argument(
+        "--local-count", type=int, default=None,
+        help="pod: how many compute processes this host runs (default: "
+        "all of --compute)",
+    )
+    p.add_argument(
+        "--coordinator",
+        help="pod: host:port of compute process 0's rendezvous (default: "
+        "127.0.0.1:<free port>, valid only for a single-host pod)",
+    )
+    p.add_argument(
+        "--speed", action="store_true",
+        help="pod: also run a speed-layer process on this host",
+    )
+    p.add_argument(
+        "--serving", action="store_true",
+        help="pod: also run a serving-layer process on this host",
     )
     p.add_argument("--conf", help="user config file (HOCON-like key paths)")
     p.add_argument(
@@ -151,11 +176,6 @@ def _parse_args(argv):
         help="config override, repeatable (e.g. --set oryx.serving.api.port=8080)",
     )
     args, unknown = p.parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        raise SystemExit(
-            f"{args.command}: not ported yet to oryx_tpu_torch "
-            f"({_NOT_PORTED[args.command]}); run it with python -m oryx_tpu.cli"
-        )
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
     return args
@@ -301,10 +321,26 @@ def _apply_platform(config: Config) -> bool:
 
 
 def _run_until_interrupt(layer) -> int:
+    # a SIGTERM handled while start() still brings threads up would close
+    # only what exists so far, and what start() adds after it would keep
+    # await_termination() waiting for good: one that comes during start()
+    # closes the layer once start() has returned
+    starting, asked = True, False
+
+    def on_term(*_):
+        nonlocal asked
+        if starting:
+            asked = True
+        else:
+            layer.close()
+
     stop = signal.getsignal(signal.SIGTERM)
-    signal.signal(signal.SIGTERM, lambda *_: layer.close())
+    signal.signal(signal.SIGTERM, on_term)
     try:
         layer.start()
+        starting = False
+        if asked:
+            layer.close()
         layer.await_termination()
     except KeyboardInterrupt:
         pass
@@ -570,13 +606,18 @@ def cmd_perf(config: Config, url: str | None = None) -> int:
 
 def cmd_batch(config: Config) -> int:
     from oryx_tpu_torch.layers import BatchLayer
+    from oryx_tpu_torch.parallel.distributed import init_distributed
 
+    # a pod member joins its process group first (a no-op single-process)
+    init_distributed(config)
     return _run_until_interrupt(BatchLayer(config))
 
 
 def cmd_speed(config: Config) -> int:
     from oryx_tpu_torch.layers import SpeedLayer
+    from oryx_tpu_torch.parallel.distributed import init_distributed
 
+    init_distributed(config)
     return _run_until_interrupt(SpeedLayer(config))
 
 
@@ -712,6 +753,7 @@ _VALUE_OPTS = {
     "--conf", "--url", "--paths", "--rate", "--duration", "--workers", "--pmml", "--set", "--loops", "--sync-mode",
     "--sync-headroom", "--app", "--kind",
     "--replicas", "--front-port", "--policy", "--shards",
+    "--compute", "--local-start", "--local-count", "--coordinator",
 }
 
 
@@ -754,6 +796,14 @@ def _child_flags(
         out.append(tok)
         i += 1
     return out
+
+
+def _pod_child_flags(raw_argv: list[str]) -> list[str]:
+    return _child_flags(
+        raw_argv,
+        {"--compute", "--local-start", "--local-count", "--coordinator"},
+        frozenset(("--speed", "--serving")),
+    )
 
 
 def _fleet_child_flags(raw_argv: list[str]) -> list[str]:
@@ -831,6 +881,163 @@ def cmd_fleet(config: Config, args, raw_argv: list[str]) -> int:
             front.close()  # stop taking traffic before killing backends
         sup.stop()
         signal.signal(signal.SIGTERM, prev_term)
+    return rc
+
+
+def cmd_pod(config: Config, args, raw_argv: list[str]) -> int:
+    """Multi-host pod launcher — the analogue of the reference's
+    oryx-run.sh spark-submit/YARN assembly (deploy/bin/oryx-run.sh:
+    199-235), with the cluster plane replaced by a ``torch.distributed``
+    process group whose global mesh spans the compute processes.
+
+    One command per host brings up that host's slice of the pod:
+
+      host0$ python -m oryx_tpu_torch.cli pod --conf oryx.conf --compute 4 \\
+                 --local-start 0 --local-count 2 \\
+                 --coordinator host0:8476 --serving
+      host1$ python -m oryx_tpu_torch.cli pod --conf oryx.conf --compute 4 \\
+                 --local-start 2 --local-count 2 --coordinator host0:8476
+
+    Compute processes run the batch layer SPMD: each joins the process
+    group (cmd_batch -> init_distributed), and the app updates build their
+    training mesh over the whole pod (mesh_from_config). The speed and
+    serving tiers stay host-local single processes wired only by the
+    shared broker — the reference topology, where only the Spark batch
+    job spans the cluster and the serving tier scales by replicas.
+    Children are supervised: SIGTERM/SIGINT fan out, and any compute
+    member exiting tears the pod down (a process group is not elastic — a
+    lost member wedges the collectives, so fail fast).
+
+    Single-host default (no --local-*/--coordinator): all compute
+    processes plus the optional tiers run here with an auto-picked
+    rendezvous port. Every child opens the card itself (two compute ranks
+    on one card join over gloo, parallel/distributed.py default_backend);
+    ``oryx.compute.platform = cpu`` puts them on the CPU."""
+    import os
+    import subprocess
+
+    n_compute = max(1, args.compute)
+    local_start = args.local_start if args.local_start is not None else 0
+    local_count = (
+        args.local_count if args.local_count is not None else n_compute
+    )
+    if local_start < 0 or local_count < 1:
+        raise SystemExit(
+            f"pod: --local-start must be >= 0 and --local-count >= 1 "
+            f"(got {local_start}, {local_count})"
+        )
+    if local_start + local_count > n_compute:
+        raise SystemExit(
+            f"pod: local range [{local_start}, {local_start + local_count})"
+            f" exceeds --compute {n_compute}"
+        )
+    coordinator = args.coordinator
+    if coordinator is None:
+        if local_start != 0 or local_count != n_compute:
+            raise SystemExit(
+                "pod: --coordinator is required when this host runs only "
+                "part of the pod (process 0's host must be reachable)"
+            )
+        from oryx_tpu_torch.common.ioutil import choose_free_port
+
+        coordinator = f"127.0.0.1:{choose_free_port()}"
+
+    # child command = this exact invocation minus the pod-only flags,
+    # with the role substituted — so --conf/--set/--app/env all carry
+    # through
+    base_flags = _pod_child_flags(raw_argv)
+
+    def spawn(role: str, extra_sets: list[str]) -> subprocess.Popen:
+        cmd = [sys.executable, "-m", "oryx_tpu_torch.cli", role, *base_flags]
+        for kv in extra_sets:
+            cmd += ["--set", kv]
+        return subprocess.Popen(cmd, env=dict(os.environ))
+
+    children: list[tuple[str, subprocess.Popen]] = []
+    for pid_idx in range(local_start, local_start + local_count):
+        children.append(
+            (
+                f"compute-{pid_idx}",
+                spawn(
+                    "batch",
+                    [
+                        f"oryx.compute.distributed.coordinator-address={coordinator}",
+                        f"oryx.compute.distributed.num-processes={n_compute}",
+                        f"oryx.compute.distributed.process-id={pid_idx}",
+                    ],
+                ),
+            )
+        )
+    # speed/serving do NOT join the compute group: force the distributed
+    # block back to single-process or init_distributed would park them
+    # waiting to be counted as group members
+    solo = [
+        "oryx.compute.distributed.coordinator-address=null",
+        "oryx.compute.distributed.num-processes=1",
+        "oryx.compute.distributed.process-id=0",
+    ]
+    if args.speed:
+        children.append(("speed", spawn("speed", solo)))
+    if args.serving:
+        children.append(("serving", spawn("serving", solo)))
+
+    print(
+        f"pod: compute {local_start}..{local_start + local_count - 1} of "
+        f"{n_compute} @ {coordinator}"
+        + (" + speed" if args.speed else "")
+        + (" + serving" if args.serving else ""),
+        flush=True,
+    )
+
+    stopping = False
+
+    def shut(*_):
+        nonlocal stopping
+        stopping = True
+        for _, c in children:
+            if c.poll() is None:
+                c.terminate()
+
+    prev_term = signal.signal(signal.SIGTERM, shut)
+    rc = 0
+    try:
+        while True:
+            alive = [(n, c) for n, c in children if c.poll() is None]
+            if not alive:
+                break
+            for name, c in children:
+                code = c.poll()
+                if code is None or stopping:
+                    continue
+                # ANY compute member exiting — even rc 0 (e.g. someone
+                # SIGTERMed one child directly) — tears the pod down: the
+                # survivors would wait in their next collective forever
+                if code != 0 or name.startswith("compute-"):
+                    print(
+                        f"pod: {name} exited rc={code} — tearing down",
+                        file=sys.stderr, flush=True,
+                    )
+                    rc = 1
+                    shut()
+                    break
+            time.sleep(0.3)
+    except KeyboardInterrupt:
+        shut()
+    finally:
+        for _, c in children:
+            if c.poll() is None:
+                c.terminate()
+        for _, c in children:
+            try:
+                c.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                c.kill()
+                c.wait()
+        signal.signal(signal.SIGTERM, prev_term)
+    if rc == 0 and any(
+        c.returncode not in (0, -signal.SIGTERM.value) for _, c in children
+    ) and not stopping:
+        rc = 1
     return rc
 
 
@@ -1183,6 +1390,9 @@ def main(argv=None) -> int:
         if args.command == "fleet":
             raw = list(argv if argv is not None else sys.argv[1:])
             return cmd_fleet(config, args, raw)
+        if args.command == "pod":
+            raw = list(argv if argv is not None else sys.argv[1:])
+            return cmd_pod(config, args, raw)
         if args.command == "flight":
             return cmd_flight(config, args.kind)
         if args.command == "perf":

@@ -5,9 +5,6 @@ moves to the CPU on its own. The CPU is used only when the caller names it
 (``device="cpu"``), which is how the tests run the plain versions of the
 kernels, or when the operator does: the CLI applies
 ``oryx.compute.platform`` (``set_platform``) as the process's default.
-
-The port runs in one process on one card: a config that asks for a
-multi-process pod raises (``reject_pod_config``).
 """
 
 from __future__ import annotations
@@ -55,14 +52,3 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(f"device {d} requested but CUDA is not available")
     return d
 
-
-def reject_pod_config(config) -> None:
-    """Raise ValueError when the config enables a multi-process pod
-    (``oryx.compute.distributed.*``): multi-device training is ROADMAP
-    queue 1 item 11 and not ported yet."""
-    g = lambda k, d: config.get(f"oryx.compute.distributed.{k}", d)  # noqa: E731
-    if int(g("num-processes", 1) or 1) > 1 or g("coordinator-address", None):
-        raise ValueError(
-            "oryx.compute.distributed: multi-process pods are not ported to "
-            "the PyTorch port yet (ROADMAP queue 1 item 11)"
-        )

@@ -21,9 +21,10 @@ Canary rollout (``oryx.fleet.canary.*``)
   3. **Judge**: promotion is gated on the canary's quality-SLO fast
      burn, its serving-latency fast burn, and its live recall vs the
      incumbent fleet's — all only after ``min-samples`` shadow-rescored
-     samples landed on the new generation (the quality plane's
-     generation-scoped windows mean those samples are the new
-     generation's alone).
+     samples landed on the new generation: counted from the first probe
+     that finds the canary serving it (``model_generation``), since its
+     gate lists the generation while the view still builds, and the
+     quality plane's windows are generation-scoped from the swap on.
   4. **Promote**: approvals raise every hold replica's watermark; the
      held generation adopts fleet-wide, the split clears once the fleet
      reports the new generation, ``canary-promote`` closes the story.
@@ -316,11 +317,16 @@ class FleetController:
             or gen in self.vetoed()
         ):
             return
-        baseline = 0
-        if isinstance(canary.quality, dict) and isinstance(
-            canary.quality.get("samples"), int
-        ):
-            baseline = canary.quality["samples"]
+        # count samples from the moment the canary SERVES the generation:
+        # its gate lists a generation while the view still builds, and the
+        # samples of that stretch are the incumbent's (_judge)
+        baseline = None
+        if canary.generation == gen:
+            baseline = 0
+            if isinstance(canary.quality, dict) and isinstance(
+                canary.quality.get("samples"), int
+            ):
+                baseline = canary.quality["samples"]
         self.front.set_canary(self.canary_rid, self.traffic_fraction)
         self._rollout = _Rollout(gen, incumbent, baseline)
         self._m_canary.inc(outcome="start")
@@ -344,9 +350,15 @@ class FleetController:
         l_burn = (sb.get("serving-latency") or {}).get("fast")
         samples = None
         recall = None
-        if isinstance(canary.quality, dict):
+        if isinstance(canary.quality, dict) and canary.generation == ro.generation:
+            # only while the canary serves the new generation: before its
+            # view is built its samples and recall window are the
+            # incumbent's, and counting them promoted a corrupted
+            # generation on the incumbent's evidence
             s = canary.quality.get("samples")
             if isinstance(s, int):
+                if ro.baseline_samples is None:
+                    ro.baseline_samples = s
                 samples = max(0, s - ro.baseline_samples)
             recall = canary.quality.get("live_recall_at_10")
         incumbent_recall = _mean(

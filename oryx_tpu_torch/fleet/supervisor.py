@@ -286,7 +286,10 @@ class FleetSupervisor:
                             pending.discard(i)
                     finally:
                         conn.close()
-                except OSError:
+                except (OSError, http.client.HTTPException):
+                    # a probe of a port no one listens on yet may connect
+                    # to itself (a TCP self-connect when the port lies in
+                    # the ephemeral range) and read its own request back
                     pass
             if pending:
                 time.sleep(0.2)

@@ -9,8 +9,9 @@ window, commit consumer offsets, and enforce data/model TTLs. The user
 update class is loaded reflectively from oryx.batch.update-class
 (BatchLayer.java:172-204).
 
-One process: the JAX package's pod members (agreed windows, a leader that
-alone publishes) are ROADMAP queue 1 item 11, and a pod config raises.
+Pod members (``oryx.compute.distributed.*``, cli.py pod) agree each
+generation's window pod-wide (``_pod_window``); only the leader (process
+0) owns the canonical storage dirs and publishes.
 """
 
 from __future__ import annotations
@@ -32,11 +33,32 @@ from oryx_tpu_torch.common.metrics import GENERATION_BUCKETS, get_registry, mayb
 from oryx_tpu_torch.common.quarantine import Quarantine
 from oryx_tpu_torch.common.retry import configure_retry
 from oryx_tpu_torch.common.tracing import configure_tracing, get_tracer, swap_current
-from oryx_tpu_torch.device import reject_pod_config
 from oryx_tpu_torch.layers.datastore import LazyPastData, save_generation
 from oryx_tpu_torch.layers.watchdog import running_seconds, start_wedge_watchdog
 
 log = logging.getLogger(__name__)
+
+
+class _NullProducer:
+    """Update-topic sink for non-leader pod members: they take part in the
+    collective training but must not double-publish MODEL/UP messages
+    (cli.py pod; see the leader note in BatchLayer.__init__)."""
+
+    def __init__(self, topic: str):
+        self._topic = topic
+
+    @property
+    def topic(self) -> str:
+        return self._topic
+
+    def send(self, key, message) -> None:
+        pass
+
+    def send_batch(self, records) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class BatchLayer:
@@ -50,7 +72,30 @@ class BatchLayer:
         self.interval_sec = config.get_int("oryx.batch.streaming.generation-interval-sec")
         self.data_dir = strip_scheme(config.get_string("oryx.batch.storage.data-dir"))
         self.model_dir = strip_scheme(config.get_string("oryx.batch.storage.model-dir"))
-        reject_pod_config(config)
+        # Pod members (cli.py pod): every compute process consumes the
+        # FULL input stream (brokers here don't split partitions within a
+        # group), so all members train the same data in lockstep and the
+        # mesh collectives line up. Only the leader (process 0) owns the
+        # canonical storage dirs and the update-topic publishes; the
+        # others keep their writes in per-process subdirs and publish
+        # nothing — the analogue of Spark executors computing while only
+        # the job's coordinating process writes results.
+        from oryx_tpu_torch.parallel.distributed import DistributedConfig
+
+        dc = DistributedConfig.from_config(config)
+        self.is_leader = dc.num_processes <= 1 or dc.process_id == 0
+        self._pod_member = dc.num_processes > 1
+        if not self.is_leader:
+            import os as _os
+
+            self.data_dir = _os.path.join(self.data_dir, f"proc-{dc.process_id}")
+            self.model_dir = _os.path.join(self.model_dir, f"proc-{dc.process_id}")
+            # own consumer group per non-leader: sharing the leader's
+            # group would let a faster member's offset commit advance
+            # past records the leader has not persisted yet (input loss
+            # on restart), and on kafka:// a shared group would split
+            # partitions when every member must see the full stream
+            self.group = f"{self.group}-proc{dc.process_id}"
         self.max_age_data = config.get_int("oryx.batch.storage.max-age-data-hours", -1)
         self.max_age_model = config.get_int("oryx.batch.storage.max-age-model-hours", -1)
         if update is not None:
@@ -69,11 +114,15 @@ class BatchLayer:
         # ingest/compute pipeline: while a model build holds the device, a
         # background thread keeps draining the input topic so the NEXT
         # generation starts with its window already read and decoded.
-        # Commit safety: run_generation commits the explicit pre-build
-        # window edge, so prefetched records stay uncommitted until THEIR
-        # window persists.
-        self.prefetch_enabled = config.get_bool(
-            "oryx.batch.storage.incremental.prefetch.enabled", True
+        # Disabled for pod members — the pod window is agreed from raw
+        # consumer positions, which prefetch would skew. Commit safety:
+        # run_generation commits the explicit pre-build window edge, so
+        # prefetched records stay uncommitted until THEIR window persists.
+        self.prefetch_enabled = (
+            config.get_bool(
+                "oryx.batch.storage.incremental.prefetch.enabled", True
+            )
+            and not self._pod_member
         )
         self.prefetch_max_records = config.get_int(
             "oryx.batch.storage.incremental.prefetch.max-records", 500_000
@@ -155,7 +204,51 @@ class BatchLayer:
         # back to the log END, so a crash before the first generation commit
         # would otherwise re-resolve to a LATER end and drop the gap
         self._consumer.commit()
-        self._producer = TopicProducer(update_broker, self.update_topic)
+        if self.is_leader:
+            self._producer = TopicProducer(update_broker, self.update_topic)
+        else:
+            self._producer = _NullProducer(self.update_topic)
+
+    def _pod_window(self, ts: int) -> tuple[int, "dict[int, int] | None"]:
+        """Agree the generation boundary pod-wide — BOTH edges. Members'
+        timers fire at different moments, and an unsynchronized
+        poll_available() would hand each member a DIFFERENT record set —
+        mismatched factor shapes under the pod mesh wedge the collectives.
+        So every member allgathers (timestamp, start positions, end
+        offsets) and adopts the leader's row: non-leaders seek() to the
+        leader's positions (their own start='committed' resolves
+        independently — to their own log END at their own startup instant
+        on a fresh group, or to whatever their per-process group last
+        committed), then every member drains to the leader's END. Same
+        window, same split timestamp, everywhere. The allgather doubles as
+        the generation barrier that aligns the members' cadence. The port's
+        host_allgather carries int64 whole. Single process: no-op."""
+        if not self._pod_member:
+            return ts, None
+        from oryx_tpu_torch.parallel.distributed import host_allgather, process_count
+
+        if process_count() <= 1:
+            return ts, None
+        import numpy as np
+
+        ends = self._consumer.end_offsets()
+        starts = self._consumer.positions()
+        parts = sorted(ends)
+        vals = (
+            [ts]
+            + [starts.get(p, 0) for p in parts]
+            + [ends[p] for p in parts]
+        )
+        agreed = [int(v) for v in host_allgather(np.asarray(vals, dtype=np.int64))[0]]
+        n = len(parts)
+        lead_starts = {p: agreed[1 + i] for i, p in enumerate(parts)}
+        lead_ends = {p: agreed[1 + n + i] for i, p in enumerate(parts)}
+        if not self.is_leader and starts != lead_starts:
+            log.info(
+                "pod member seeking to leader start positions %s", lead_starts
+            )
+            self._consumer.seek(lead_starts)
+        return agreed[0], lead_ends
 
     def run_generation(self, timestamp_ms: int | None = None) -> int:
         """Execute one batch generation synchronously; returns the number of
@@ -164,10 +257,11 @@ class BatchLayer:
         if self._consumer is None:
             self.ensure_streams()
         ts = timestamp_ms if timestamp_ms is not None else int(time.time() * 1000)
+        ts, up_to = self._pod_window(ts)
         tr = get_tracer()
         t_ingest = time.monotonic() if tr.enabled else 0.0
         prefetched, self._prefetched = self._prefetched, []
-        new_data = prefetched + self._consumer.poll_available()
+        new_data = prefetched + self._consumer.poll_available(up_to=up_to)
         # the window edge to commit: positions BEFORE the build, so the
         # ingest-prefetch thread (running during the build) cannot push
         # unpersisted records past the committed offsets

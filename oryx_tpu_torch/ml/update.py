@@ -12,12 +12,15 @@ model_dir/<timestamp>, and publishes it to the update topic inline
 max message size (MLUpdate.java:212-231), then streams any oversized extras
 via publish_additional_model_data (e.g. ALS factor rows).
 
-One process: the JAX package's pod branches (the process-group
-candidate search, the winner fetch across hosts) and its sub-mesh pool are
-not ported yet (ROADMAP queue 1 item 11, its pod half). A config that enables a pod
-(``oryx.compute.distributed.*``) raises ValueError. An app that trains on a
-mesh sets ``self.mesh`` (``training_mesh``); candidates run in threads
-(``collect_in_parallel``) and share the card and the mesh.
+An app that trains on a mesh sets ``self.mesh`` (``training_mesh``) and
+resolves each build's mesh through ``_build_mesh``. A parallel search
+(``oryx.ml.eval.parallelism`` > 1) in one process runs each candidate on
+its own slice of the mesh's data axis (parallel/submesh.py
+``partition_mesh``). A pod (``oryx.compute.distributed.*``, a member per
+process) splits its processes into groups that build disjoint candidate
+subsets on their own sub-meshes, gathers the scores, and ships the winner
+from its group's leader to every member (``_pod_group_search``,
+``_fetch_winner``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from oryx_tpu_torch.common.executil import collect_in_parallel
 from oryx_tpu_torch.common.ioutil import atomic_rename, delete_recursively, mkdirs, strip_scheme
 from oryx_tpu_torch.common.metrics import get_registry
 from oryx_tpu_torch.common.rng import RandomManager
-from oryx_tpu_torch.device import reject_pod_config
 from oryx_tpu_torch.ml.hyperparams import choose_combos
 
 log = logging.getLogger(__name__)
@@ -97,10 +99,21 @@ class MLUpdate(BatchLayerUpdate):
         self.artifact_transfer = config.get_bool(
             "oryx.update-topic.artifact-transfer", True
         )
-        reject_pod_config(config)
+        from oryx_tpu_torch.parallel.distributed import DistributedConfig
+
+        # multi-PROCESS pods parallelize the candidate search by process
+        # GROUP (run_update): the pod splits into contiguous process
+        # groups, each group trains a disjoint candidate subset on its own
+        # slice of the mesh, and scores are gathered pod-wide afterwards —
+        # the cluster-parallel search of the reference
+        # (MLUpdate.java:253-258) without ever interleaving two
+        # candidates' collectives on one device.
+        self._pod = DistributedConfig.from_config(config).enabled
         # incremental generations: apps that maintain a persistent
         # aggregate snapshot (incremental_update) make generation N cost
-        # O(new window)
+        # O(new window); the pod path stays on the lockstep full rebuild
+        # (every member must see identical inputs, and per-member
+        # snapshots could diverge after partial failures).
         self.incremental = config.get_bool(
             "oryx.batch.storage.incremental.enabled", True
         )
@@ -207,6 +220,16 @@ class MLUpdate(BatchLayerUpdate):
         on one device."""
         return getattr(self, "mesh", None)
 
+    def _build_mesh(self):
+        """The mesh for the CURRENT candidate build: the thread's assigned
+        sub-mesh during a partitioned parallel search, else the full
+        training mesh. App build_model implementations resolve their
+        trainer's mesh through this."""
+        from oryx_tpu_torch.parallel.submesh import current_candidate_mesh
+
+        m = current_candidate_mesh()
+        return m if m is not None else self.training_mesh()
+
     # ---- the harness -----------------------------------------------------
 
     def run_update(
@@ -217,7 +240,7 @@ class MLUpdate(BatchLayerUpdate):
         model_dir: str,
         update_producer: TopicProducer,
     ) -> None:
-        if self.incremental:
+        if self.incremental and not self._pod:
             # the incremental path never touches past_data: when the app's
             # aggregate snapshot is valid, generation cost is O(window)
             if self.incremental_update(
@@ -230,6 +253,13 @@ class MLUpdate(BatchLayerUpdate):
             log.info("no data at generation %d; skipping model build", timestamp_ms)
             return
         self._m_incremental.inc(kind="full")
+        if self._pod:
+            # every pod member must draw the SAME random split, the same
+            # hyperparam combos and the same factor inits, or the lockstep
+            # collective training diverges. The generation timestamp is
+            # already pod-agreed (BatchLayer._pod_window), so it seeds one
+            # shared deterministic stream per generation.
+            RandomManager.use_test_seed(timestamp_ms & 0x7FFFFFFF)
         train, test = self.split_train_test(data)
         if not train:
             train, test = data, []
@@ -238,15 +268,79 @@ class MLUpdate(BatchLayerUpdate):
         root = Path(strip_scheme(model_dir))
         cand_root = mkdirs(root / ".candidates" / str(timestamp_ms))
 
+        # a parallel search runs one candidate per DISJOINT sub-mesh:
+        # slice the mesh along its data axis, clamp the thread count to the
+        # number of sub-meshes, and hand each RUNNING build a mesh from a
+        # free pool (assignment by task index would let two in-flight
+        # candidates share cells whenever candidates outnumber sub-meshes)
+        mesh_pool = None
         parallelism = min(self.eval_parallelism, len(combos))
-        results = collect_in_parallel(
-            len(combos),
-            lambda i: self._build_one(i, combos, train, test, cand_root),
-            parallelism,
-        )
-        scores = [s for s, _ in results]
-        paths = [p for _, p in results]
-        has_model = [p is not None for p in paths]
+        pod_groups = None
+        multiproc = False
+        if self._pod:
+            from oryx_tpu_torch.parallel.distributed import process_count
+
+            multiproc = process_count() > 1
+        if parallelism > 1 and multiproc:
+            from oryx_tpu_torch.parallel.submesh import pod_group_submesh
+
+            mesh = self.training_mesh()
+            pod_groups = (
+                pod_group_submesh(mesh, parallelism) if mesh is not None else None
+            )
+            if pod_groups is None:
+                # un-partitionable pod (no mesh, or one the pod cannot split
+                # by process): candidates then run serially in the same
+                # order on every member — two candidates' collectives
+                # interleaved on shared devices wedge the group
+                log.warning(
+                    "pod mesh not partitionable by process group; "
+                    "running candidate search serially"
+                )
+                parallelism = 1
+        if parallelism > 1 and pod_groups is None:
+            mesh = self.training_mesh()
+            if mesh is not None:
+                import queue
+
+                from oryx_tpu_torch.parallel.submesh import partition_mesh
+
+                subs = partition_mesh(mesh, parallelism)
+                parallelism = min(parallelism, len(subs))
+                if parallelism > 1:
+                    mesh_pool = queue.Queue()
+                    for m in subs:
+                        mesh_pool.put(m)
+                    log.info(
+                        "parallel candidate search: %d sub-meshes of %s "
+                        "cells", len(subs), [m.size for m in subs],
+                    )
+
+        def build_and_eval(i: int) -> tuple[float, Path | None]:
+            if multiproc:
+                # per-candidate deterministic seed, order-independent: a
+                # pod member building only its group's candidate subset
+                # must draw the same inits the serial lockstep search
+                # would, or group-parallel and serial searches diverge
+                RandomManager.use_test_seed(
+                    self._pod_candidate_seed(timestamp_ms, i)
+                )
+            sub = mesh_pool.get() if mesh_pool is not None else None
+            try:
+                return self._build_one(i, combos, train, test, cand_root, sub)
+            finally:
+                if sub is not None:
+                    mesh_pool.put(sub)
+
+        if pod_groups is not None:
+            scores, has_model, paths = self._pod_group_search(
+                timestamp_ms, train, test, combos, cand_root, pod_groups
+            )
+        else:
+            results = collect_in_parallel(len(combos), build_and_eval, parallelism)
+            scores = [s for s, _ in results]
+            paths = [p for _, p in results]
+            has_model = [p is not None for p in paths]
 
         best_i, best_score = -1, float("-inf")
         for i, (score, ok) in enumerate(zip(scores, has_model)):
@@ -279,9 +373,17 @@ class MLUpdate(BatchLayerUpdate):
             # either way, and skipping this would leave the snapshot
             # permanently stale — every later generation would repeat the
             # O(history) full rebuild until eval crossed the threshold
-            if self.incremental:
+            if self.incremental and not self._pod:
                 self.after_full_build(timestamp_ms, train, test, None)
             return
+
+        if pod_groups is not None:
+            # the winner lives on its building group's disks only; every
+            # process must end this generation with the same final_dir
+            # content (exactly as the serial lockstep search guarantees)
+            paths[best_i] = self._fetch_winner(
+                best_i, paths[best_i], cand_root, pod_groups
+            )
 
         # the winner's eval rides the publish stamp as the generation's
         # quality scorecard (best_score is -inf on a NaN-tolerant pick)
@@ -290,7 +392,7 @@ class MLUpdate(BatchLayerUpdate):
             paths[best_i], root, timestamp_ms, update_producer
         )
         delete_recursively(root / ".candidates")
-        if self.incremental:
+        if self.incremental and not self._pod:
             self.after_full_build(timestamp_ms, train, test, model)
 
     def promote_and_publish(
@@ -325,18 +427,104 @@ class MLUpdate(BatchLayerUpdate):
         train: Sequence[KeyMessage],
         test: Sequence[KeyMessage],
         cand_root: Path,
+        sub=None,
     ) -> tuple[float, Path | None]:
-        """Build, write, and evaluate candidate i — the single copy of the
-        candidate build-and-score contract."""
+        """Build, write, and evaluate candidate i (on sub-mesh ``sub`` when
+        given) — the single copy of the candidate build-and-score contract
+        that the serial, thread-parallel and pod-group searches all use."""
+        from contextlib import nullcontext
+
+        from oryx_tpu_torch.parallel.submesh import candidate_mesh
+
+        ctx = candidate_mesh(sub) if sub is not None else nullcontext()
         try:
-            model = self.build_model(train, combos[i])
-            cand_dir = model.write(cand_root / str(i))
-            score = self.evaluate(model, train, test) if test else float("nan")
+            with ctx:
+                model = self.build_model(train, combos[i])
+                cand_dir = model.write(cand_root / str(i))
+                score = (
+                    self.evaluate(model, train, test) if test else float("nan")
+                )
             log.info("candidate %d %s -> eval %s", i, combos[i], score)
             return score, cand_dir
         except Exception:
             log.exception("candidate %d failed", i)
             return float("nan"), None
+
+    @staticmethod
+    def _pod_candidate_seed(timestamp_ms: int, i: int) -> int:
+        """Deterministic per-(generation, candidate) RNG seed: every pod
+        member derives the same seed for candidate i no matter which
+        candidates it builds, or in what order."""
+        return (timestamp_ms ^ ((i + 1) * 0x9E3779B9)) & 0x7FFFFFFF
+
+    def _pod_group_search(
+        self,
+        timestamp_ms: int,
+        train: Sequence[KeyMessage],
+        test: Sequence[KeyMessage],
+        combos: list[dict[str, Any]],
+        cand_root: Path,
+        pod_groups,
+    ) -> tuple[list[float], list[bool], list[Path | None]]:
+        """The multi-process parallel candidate search (reference
+        MLUpdate.java:253-258 fans candidates out over the Spark cluster).
+        Process groups build disjoint candidate subsets concurrently, each
+        on its own slice of the pod mesh; afterwards every process gathers
+        all scores and adopts each candidate's GROUP-LEADER row, so every
+        member picks the winner from identical numbers."""
+        from oryx_tpu_torch.parallel.distributed import host_allgather, process_count
+
+        my_group, groups, sub = pod_groups
+        n_groups = len(groups)
+        n = len(combos)
+        mine = [i for i in range(n) if i % n_groups == my_group]
+        log.info(
+            "pod parallel candidate search: %d groups over %d processes; "
+            "group %d (processes %s, %d-cell sub-mesh) builds candidates %s",
+            n_groups, process_count(), my_group, groups[my_group],
+            sub.size, mine,
+        )
+        scores = np.full(n, np.nan)
+        built = np.zeros(n, dtype=np.int64)
+        paths: list[Path | None] = [None] * n
+        for i in mine:
+            RandomManager.use_test_seed(self._pod_candidate_seed(timestamp_ms, i))
+            scores[i], paths[i] = self._build_one(
+                i, combos, train, test, cand_root, sub
+            )
+            built[i] = 1 if paths[i] is not None else 0
+        all_scores = host_allgather(scores)
+        all_built = host_allgather(built)
+        final_scores, final_built = [], []
+        for i in range(n):
+            leader = groups[i % n_groups][0]
+            final_scores.append(float(all_scores[leader, i]))
+            final_built.append(bool(all_built[leader, i]))
+        return final_scores, final_built, paths
+
+    def _fetch_winner(
+        self, best_i: int, local_path: Path | None, cand_root: Path, pod_groups
+    ) -> Path:
+        """Collective: ship the winning candidate's artifact bytes from its
+        building group's leader to every process that did not build it (no
+        shared filesystem — the reason MODEL-REF rides the artifact relay).
+        All pod members must call this together."""
+        from oryx_tpu_torch.parallel.distributed import (
+            host_broadcast_bytes,
+            process_index,
+        )
+
+        _, groups, _ = pod_groups
+        src = groups[best_i % len(groups)][0]
+        payload = None
+        if process_index() == src:
+            payload = ModelArtifact.read(local_path).to_string().encode("utf-8")
+        blob = host_broadcast_bytes(payload, src)
+        if local_path is not None:
+            return Path(local_path)
+        return ModelArtifact.from_string(blob.decode("utf-8")).write(
+            cand_root / str(best_i)
+        )
 
     def publish_model(
         self, model: ModelArtifact, model_path: str, producer: TopicProducer

@@ -1143,8 +1143,12 @@ def _init_y(data, features: int, n_rows: int, seed_key, resume_y, mesh):
     """The item-factor init as one host f32 tensor of ``n_rows`` rows,
     zero past the live items (phantom rows must not inflate Y'Y): resume_y,
     else N(1/sqrt(K), 0.1) from ``seed_key`` (a ``torch.Generator``) or the
-    RandomManager's CPU generator. A mesh spanning processes takes process
-    0's draw, so every process starts from the same Y."""
+    RandomManager's CPU generator. A mesh spanning processes takes the draw
+    of its first process (a broadcast within the mesh's group), so every
+    process starts from the same Y; inside a candidate sub-mesh of the pod
+    search there is no broadcast: every member of the group seeded
+    RandomManager from the same candidate seed and drew the same Y, and a
+    broadcast would wait for groups busy with other candidates."""
     n_i = data.n_items
     y0 = torch.zeros((n_rows, features), dtype=torch.float32)
     if resume_y is not None:
@@ -1155,9 +1159,12 @@ def _init_y(data, features: int, n_rows: int, seed_key, resume_y, mesh):
     draw = torch.randn((n_i, features), generator=g, device=g.device).cpu()
     y0[:n_i] = draw * 0.1 + 1.0 / math.sqrt(features)
     if mesh.spans_processes and seed_key is None:
-        import torch.distributed as dist
+        from oryx_tpu_torch.parallel.submesh import current_candidate_mesh
 
-        dist.broadcast(y0, src=0)
+        if current_candidate_mesh() is None:
+            import torch.distributed as dist
+
+            dist.broadcast(y0, src=mesh.processes[0], group=mesh._dist_group())
     return y0
 
 

@@ -27,8 +27,11 @@ the JAX package, so none is a hand kernel here:
 
 Every entry point takes ``device=None`` (the card; ``device="cpu"`` only
 when the caller names it) and points as a numpy array or a tensor already
-on the device. A ``mesh`` raises: multi-device training is ROADMAP queue 1
-item 11.
+on the device. ``train_kmeans(mesh=)`` trains on a mesh
+(parallel/mesh.py): the init runs on the mesh's first cell, then the
+points split by row over "data" (pad rows weigh zero) and every Lloyd step
+sums the cells' per-center sums and counts with ``Mesh.psum``
+(``lloyd_mesh``; the JAX package's sharded ``lloyd_jit``).
 """
 
 from __future__ import annotations
@@ -49,12 +52,6 @@ SILHOUETTE_MAX_SAMPLE = 4096
 # entries (1 GiB): k-means|| weights ~2k x rounds candidates, which at 5M
 # points would otherwise be a 20 GB matrix.
 _ASSIGN_CHUNK_ELEMS = 1 << 28
-
-_NOT_PORTED_MESH = (
-    "{}: mesh training is not ported to the PyTorch port yet "
-    "(ROADMAP queue 1 item 11: multi-device)"
-)
-
 
 def _device_for(x, device) -> torch.device:
     """The device a call runs on: a tensor's own when the caller names
@@ -139,6 +136,49 @@ def lloyd(points, weights, centers0, *, iterations: int, device=None):
     # final assignment for cluster sizes
     _, counts = segment_sums(_assign(p, centers)[0])
     return centers, counts
+
+
+def lloyd_mesh(points: np.ndarray, weights: np.ndarray, centers0, *,
+               iterations: int, mesh):
+    """``lloyd`` over a mesh: the rows of ``points`` and ``weights`` split
+    over the "data" axis, padded with zero-weight rows to a multiple of
+    it (a pad row never moves a center), the centers whole on every cell.
+    Each step's per-center sums and counts are summed over "data" with
+    ``Mesh.psum``, so every cell takes the same step. -> (centers [K,D]
+    f32, counts [K] f32) on the mesh's first cell's device."""
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS, split_rows
+
+    p = np.asarray(points, dtype=np.float32)
+    w = np.asarray(weights, dtype=np.float32)
+    pad = (-len(p)) % mesh.shape[DATA_AXIS]
+    if pad:
+        p = np.concatenate([p, np.zeros((pad, p.shape[1]), dtype=np.float32)])
+        w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
+    pts = split_rows(torch.from_numpy(p), mesh, DATA_AXIS).shards
+    wts = split_rows(torch.from_numpy(w), mesh, DATA_AXIS).shards
+    cells = mesh.cells()
+    c0 = torch.as_tensor(np.asarray(centers0, dtype=np.float32))
+    centers = {c: c0.to(mesh.device(*c), copy=True) for c in cells}
+    wp = {c: pts[c] * wts[c][:, None] for c in cells}
+    k = c0.shape[0]
+
+    def summed():
+        sums, counts = {}, {}
+        for c in cells:
+            ids, _ = _assign(pts[c], centers[c])
+            sums[c] = torch.zeros_like(centers[c]).index_add_(0, ids, wp[c])
+            counts[c] = torch.zeros(
+                k, dtype=torch.float32, device=ids.device).index_add_(0, ids, wts[c])
+        return mesh.psum(sums, DATA_AXIS), mesh.psum(counts, DATA_AXIS)
+
+    for _ in range(iterations):
+        sums, counts = summed()
+        centers = {c: torch.where(counts[c][:, None] > 0,
+                                  sums[c] / torch.clamp(counts[c], min=1.0)[:, None],
+                                  centers[c])
+                   for c in cells}
+    _, counts = summed()  # final assignment for cluster sizes
+    return centers[cells[0]], counts[cells[0]]
 
 
 def _kmeans_parallel_init(
@@ -256,10 +296,14 @@ def train_kmeans(
     CPU). ``runs > 1`` restarts from fresh inits and keeps the lowest-SSE
     result (oryx.kmeans.runs). ``generator`` (a ``torch.Generator`` on the
     device) drives the init's draws; by default one from RandomManager.
-    ``timings``, when given, receives upload_s, init_s and lloyd_s."""
-    if mesh is not None:
-        raise ValueError(_NOT_PORTED_MESH.format("train_kmeans"))
-    dev = resolve_device(device)
+    ``timings``, when given, receives upload_s, init_s and lloyd_s.
+
+    With a ``mesh`` the init runs on the mesh's first cell's device (which
+    replaces ``device``) and Lloyd's iterations on every cell
+    (``lloyd_mesh``): from the same generator, the centers agree with the
+    single-device ones up to the sums' order."""
+    dev = (mesh.device(*mesh.cells()[0]) if mesh is not None
+           else resolve_device(device))
     points = np.asarray(points, dtype=np.float32)
     points = points[~np.isnan(points).any(axis=1)]
     n = len(points)
@@ -269,8 +313,8 @@ def train_kmeans(
     if runs > 1:
         best, best_sse = None, np.inf
         for _ in range(runs):  # each run draws on from the same stream
-            m = train_kmeans(points, k, iterations, init, generator=gen,
-                             device=dev, timings=timings)
+            m = train_kmeans(points, k, iterations, init, mesh=mesh,
+                             generator=gen, device=dev, timings=timings)
             sse = sum_squared_error(points, m.centers, device=dev)
             if best is None or sse < best_sse:
                 best, best_sse = m, sse
@@ -291,7 +335,12 @@ def train_kmeans(
     else:
         centers0 = _kmeans_parallel_init(points, pts_d, weights_d, k, gen)
     t2 = time.perf_counter()
-    centers, counts = lloyd(pts_d, weights_d, centers0, iterations=iterations)
+    if mesh is not None:
+        del pts_d, weights_d  # the cells take their own row blocks
+        centers, counts = lloyd_mesh(points, np.ones(n, dtype=np.float32),
+                                     centers0, iterations=iterations, mesh=mesh)
+    else:
+        centers, counts = lloyd(pts_d, weights_d, centers0, iterations=iterations)
     out = KMeansModelArrays(
         centers.cpu().numpy(), counts.cpu().numpy().round().astype(np.int64)
     )

@@ -31,7 +31,10 @@ Each level:
   streams differ), the first maximum over P x B (``torch.argmax``, as
   ``jnp.argmax``), the split mask and the routing of examples to children.
 
-A ``mesh`` raises: multi-device training is ROADMAP queue 1 item 11.
+``grow_forest(mesh=)`` splits the tree axis over the mesh's "data" axis
+when the tree count divides it (the JAX package's sharded vmap): each cell
+grows its trees from the per-tree weights and feature-subset draws one
+device would use, so the forest is the single-device one.
 """
 
 from __future__ import annotations
@@ -243,12 +246,18 @@ def _grow_trees(
     n_classes: int,  # 0 => regression
     impurity: str,
     mtry: int,
+    trees: tuple[int, int] | None = None,
 ):
     """All T trees level by level -> (feature [T,M] int32, split_left
-    [T,M,B] bool, node stats [T,M,C] f32, importance [T,P] f32)."""
+    [T,M,B] bool, node stats [T,M,C] f32, importance [T,P] f32).
+    ``trees = (first, total)`` grows trees [first, first + T) of a forest
+    of ``total``: ``gen`` then draws every tree's feature subsets, and
+    these trees take their own rows, so they come out as in the whole
+    forest."""
     dev = binned.device
     n, p = binned.shape
     t = weight.shape[0]
+    first, n_trees = trees if trees is not None else (0, t)
     b = n_bins_max
     m = 2 ** (max_depth + 1) - 1
     classification = n_classes > 0
@@ -353,7 +362,8 @@ def _grow_trees(
         # per-node "auto" feature subset: keep mtry features with the
         # smallest uniform draws (MLlib featureSubsetStrategy="auto")
         if mtry < p:
-            u = torch.rand((t, n_level, p), generator=gen, device=gen.device).to(dev)
+            u = torch.rand((n_trees, n_level, p), generator=gen,
+                           device=gen.device)[first:first + t].to(dev)
             ranks = torch.argsort(torch.argsort(u, dim=2), dim=2)
             ok = ok & (ranks < mtry)[..., None]
         gain = torch.where(ok, gain, torch.full_like(gain, float("-inf")))
@@ -418,40 +428,55 @@ def grow_forest(
 ) -> Forest:
     """Train the forest on ``device`` (the card unless the caller names the
     CPU): multinomial bootstrap weights per tree from RandomManager (the
-    JAX package's stream), then every tree level by level."""
-    if mesh is not None:
-        raise ValueError(
-            "grow_forest: mesh training is not ported to the PyTorch port "
-            "yet (ROADMAP queue 1 item 11: multi-device)"
-        )
-    dev = resolve_device(device)
+    JAX package's stream), then every tree level by level.
+
+    With a ``mesh`` whose "data" axis divides ``num_trees``, data row d
+    grows its share of the trees on its first cell's device (``device``
+    is not used) and the rows' trees are gathered over "data"; each cell
+    draws from a generator of the same seed, so the forest equals the
+    single-device one. A tree count the axis does not divide grows whole
+    on the mesh's first cell (phantom trees would join the vote)."""
+    dev = (mesh.device(*mesh.cells()[0]) if mesh is not None
+           else resolve_device(device))
     n, p = data.binned.shape
     rng = RandomManager.get_random()
     weights = rng.multinomial(n, np.full(n, 1.0 / n), size=num_trees).astype(
         np.float32
     )  # [T, N]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(rng.integers(2**31 - 1)))
+    seed = int(rng.integers(2**31 - 1))
     classification = n_classes > 0
     mtry = resolve_mtry(feature_subset, p, classification, num_trees=num_trees)
     if classification:
         yy = torch.from_numpy(np.nan_to_num(y, nan=0.0).astype(np.int64))
     else:
         yy = torch.from_numpy(np.asarray(y, dtype=np.float32))
+    binned = torch.from_numpy(np.ascontiguousarray(data.binned, dtype=np.int32))
+    n_bins = torch.from_numpy(data.n_bins.astype(np.int64))
+    is_cat = torch.from_numpy(np.asarray(data.is_categorical, dtype=bool))
 
-    feature, split_left, counts, importance = _grow_trees(
-        torch.from_numpy(np.ascontiguousarray(data.binned, dtype=np.int32)).to(dev),
-        yy.to(dev),
-        torch.from_numpy(weights).to(dev),
-        torch.from_numpy(data.n_bins.astype(np.int64)).to(dev),
-        torch.from_numpy(np.asarray(data.is_categorical, dtype=bool)).to(dev),
-        gen,
-        max_depth=max_depth,
-        n_bins_max=int(data.n_bins.max()),
-        n_classes=n_classes,
-        impurity=impurity,
-        mtry=mtry,
-    )
+    def grow(on: torch.device, lo: int, hi: int):
+        gen = torch.Generator(device=on)
+        gen.manual_seed(seed)
+        return _grow_trees(
+            binned.to(on), yy.to(on), torch.from_numpy(weights[lo:hi]).to(on),
+            n_bins.to(on), is_cat.to(on), gen,
+            max_depth=max_depth, n_bins_max=int(data.n_bins.max()),
+            n_classes=n_classes, impurity=impurity, mtry=mtry,
+            trees=(lo, num_trees),
+        )
+
+    from oryx_tpu_torch.parallel.mesh import DATA_AXIS
+
+    if mesh is not None and num_trees % mesh.shape[DATA_AXIS] == 0:
+        per = num_trees // mesh.shape[DATA_AXIS]
+        rows = {d: grow(mesh.device(d, 0), d * per, (d + 1) * per)
+                for d in mesh.local_rows()}
+        cell0 = mesh.cells()[0]
+        feature, split_left, counts, importance = (
+            mesh.all_gather({c: rows[c[0]][j] for c in mesh.cells()}, DATA_AXIS)[cell0]
+            for j in range(4))
+    else:
+        feature, split_left, counts, importance = grow(dev, 0, num_trees)
     feature = feature.cpu().numpy()
     split_left = split_left.cpu().numpy()
     counts = counts.cpu().numpy().astype(np.float64)

@@ -7,8 +7,11 @@ repeat: a (2, 2) mesh over one card runs four cells on ``cuda:0``, and
 CPU devices. The collectives that XLA inserts in the JAX package are
 explicit here: ``Mesh.psum`` sums the cells' tensors along an axis, and
 follows that with ``torch.distributed.all_reduce`` where the axis spans
-processes (``parallel/distributed.py``). The pod half (``submesh.py``, the
-partitioned candidate search) is not ported yet.
+processes (``parallel/distributed.py``), over the mesh's process group;
+``ppermute`` and ``all_to_all`` carry sequence-parallel attention
+(ops/attention.py). ``submesh.py`` partitions a mesh for the parallel
+candidate search: by data rows in one process, by process group across a
+pod.
 """
 
 from oryx_tpu_torch.parallel.mesh import (
@@ -23,7 +26,8 @@ from oryx_tpu_torch.parallel.mesh import (
     pad_to_multiple,
     shard_array,
 )
-from oryx_tpu_torch.parallel.shardspec import RowShards, process_groups, shard_devices
+from oryx_tpu_torch.parallel.shardspec import RowShards, shard_devices
+from oryx_tpu_torch.parallel.submesh import process_groups
 
 __all__ = [
     "DATA_AXIS",

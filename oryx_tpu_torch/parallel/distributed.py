@@ -105,9 +105,12 @@ def init_distributed(config: Config) -> bool:
 def shutdown_distributed() -> None:
     """Leave the process group (a no-op when none was joined)."""
     global _initialized
+    from oryx_tpu_torch.parallel.submesh import forget_process_groups
+
     dist = _dist()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    forget_process_groups()
     _initialized = False
 
 
@@ -216,7 +219,8 @@ def host_broadcast_bytes(payload: bytes | None, src_process: int) -> bytes:
 
 def host_allgather(x) -> np.ndarray:
     """Gather a small host-side value from every process (e.g. per-process
-    record counts). Returns [num_processes, ...]."""
+    record counts). Returns [num_processes, ...] of the value's dtype:
+    int64 travels whole (a millisecond timestamp, a mature offset)."""
     a = np.asarray(x)
     if process_count() == 1:
         return a[None]

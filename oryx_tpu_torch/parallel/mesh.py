@@ -10,9 +10,22 @@ all-gather for a factor read), the port calls them itself:
 - ``Mesh.psum(parts, axis)`` sums the cells' tensors along ``axis`` in a
   fixed order and hands every cell of the group the same sum on its own
   device; where the axis spans processes the local sum is followed by
-  ``torch.distributed.all_reduce``, so every process holds the same bits.
-- ``Mesh.all_gather(parts, axis)`` concatenates the cells' row blocks
-  along ``axis`` (``torch.distributed.all_gather`` across processes).
+  ``torch.distributed.all_reduce`` over the mesh's process group, so every
+  process holds the same bits.
+- ``Mesh.all_gather(parts, axis, dim)`` concatenates the cells' blocks
+  along ``dim`` in ``axis`` order (``torch.distributed.all_gather`` over
+  the group across processes).
+- ``Mesh.ppermute(parts, axis, shift)`` rotates the cells' blocks along
+  ``axis`` (``jax.lax.ppermute`` with the ring permutation ``j -> j +
+  shift``; ``batch_isend_irecv`` across processes).
+- ``Mesh.all_to_all(parts, axis, split_dim, concat_dim)`` is the tiled
+  ``jax.lax.all_to_all`` (``torch.distributed.all_to_all`` across
+  processes).
+
+Across processes gloo carries CUDA tensors for all_reduce and all_gather;
+its point-to-point and all-to-all take host tensors, so those two stage a
+card's blocks through host memory explicitly when the group's backend is
+gloo.
 
 A ``Mesh`` is a grid of torch devices whose entries may repeat: a (2, 2)
 mesh over one card runs its four cells on ``cuda:0``, one after another.
@@ -53,12 +66,14 @@ class Mesh:
     """A (data, model) grid of torch devices.
 
     ``row_process[d]`` is the rank of the process that holds data row d
-    (all this process's rank for a mesh inside one process); a data axis
-    that spans processes reduces over the default process group."""
+    (all this process's rank for a mesh inside one process). A data axis
+    that spans processes reduces over ``group``: the
+    ``torch.distributed`` process group of exactly those processes, or
+    None for the whole world (then the mesh must span every process)."""
 
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
-    def __init__(self, devices, row_process=None):
+    def __init__(self, devices, row_process=None, group=None):
         grid = np.empty(np.shape(devices)[:2], dtype=object)
         for (d, m), dev in np.ndenumerate(np.asarray(devices, dtype=object)):
             grid[d, m] = torch.device(dev)
@@ -72,6 +87,7 @@ class Mesh:
         if len(self.row_process) != grid.shape[0]:
             raise ValueError("row_process needs one rank per data row")
         self.process_index = rank
+        self.group = group
 
     @property
     def shape(self) -> dict[str, int]:
@@ -84,6 +100,21 @@ class Mesh:
     @property
     def spans_processes(self) -> bool:
         return len(set(self.row_process)) > 1
+
+    @property
+    def processes(self) -> list[int]:
+        """The ranks whose processes hold the mesh's rows, ascending: the
+        group's members, in the order its collectives rank them."""
+        return sorted(set(self.row_process))
+
+    def select_rows(self, rows, group=None) -> "Mesh":
+        """The sub-mesh of data rows ``rows`` (in that order) with the
+        whole model axis; ``group`` is the process group of its processes
+        when they are several."""
+        rows = list(rows)
+        return Mesh(self.devices[rows, :],
+                    row_process=[self.row_process[r] for r in rows],
+                    group=group)
 
     def local_rows(self) -> list[int]:
         return [d for d, p in enumerate(self.row_process) if p == self.process_index]
@@ -113,45 +144,184 @@ class Mesh:
                     for m in range(self.devices.shape[1])]
         raise ValueError(f"unknown mesh axis {axis!r}")
 
+    def _dist_group(self):
+        """The process group a collective over the data axis runs in.
+        Raises ValueError for a world-group mesh that leaves some process
+        out: its collective would wait for that process forever."""
+        import torch.distributed as dist
+
+        if self.group is None and len(self.processes) != dist.get_world_size():
+            raise ValueError(
+                f"a mesh over processes {self.processes} of a world of "
+                f"{dist.get_world_size()} needs their process group")
+        return self.group
+
+    def _crosses(self, axis: str) -> bool:
+        return axis == DATA_AXIS and self.spans_processes
+
     def psum(self, parts: dict, axis: str) -> dict:
         """Sum ``parts[cell]`` over ``axis``: every cell gets its group's
         sum on its own device. The sum runs in axis order on the group's
-        first device (then across processes for a data axis that spans
-        them), so every cell of a group holds the same bits."""
+        first device (then across the mesh's processes for a data axis
+        that spans them), so every cell of a group holds the same bits."""
         out = {}
         for group in self._groups(axis):
             dev0 = self.device(*group[0])
             total = parts[group[0]].to(dev0, copy=True)
             for cell in group[1:]:
                 total += parts[cell].to(dev0)
-            if axis == DATA_AXIS and self.spans_processes:
+            if self._crosses(axis):
                 import torch.distributed as dist
 
-                dist.all_reduce(total, op=dist.ReduceOp.SUM)
+                dist.all_reduce(total, op=dist.ReduceOp.SUM,
+                                group=self._dist_group())
             for cell in group:
                 dev = self.device(*cell)
                 out[cell] = total if dev == dev0 else total.to(dev)
         return out
 
-    def all_gather(self, parts: dict, axis: str) -> dict:
-        """Concatenate ``parts[cell]`` along dim 0 in ``axis`` order: every
-        cell of a group gets the whole on its own device. Across
+    def all_gather(self, parts: dict, axis: str, dim: int = 0) -> dict:
+        """Concatenate ``parts[cell]`` along ``dim`` in ``axis`` order:
+        every cell of a group gets the whole on its own device. Across
         processes every process must hold blocks of one shape."""
         out = {}
         for group in self._groups(axis):
             dev0 = self.device(*group[0])
-            whole = torch.cat([parts[c].to(dev0) for c in group])
-            if axis == DATA_AXIS and self.spans_processes:
+            whole = torch.cat([parts[c].to(dev0) for c in group], dim=dim)
+            if self._crosses(axis):
                 import torch.distributed as dist
 
+                pg = self._dist_group()
                 pieces = [torch.empty_like(whole)
-                          for _ in range(dist.get_world_size())]
-                dist.all_gather(pieces, whole.contiguous())
-                whole = torch.cat(pieces)
+                          for _ in range(dist.get_world_size(pg))]
+                dist.all_gather(pieces, whole.contiguous(), group=pg)
+                whole = torch.cat(pieces, dim=dim)
             for cell in group:
                 dev = self.device(*cell)
                 out[cell] = whole if dev == dev0 else whole.to(dev)
         return out
+
+    def _staged(self) -> bool:
+        """True when the group's backend takes host tensors only for
+        point-to-point and all-to-all (gloo): blocks then go through host
+        memory, explicitly."""
+        import torch.distributed as dist
+
+        return dist.get_backend(self._dist_group()) == "gloo"
+
+    def ppermute(self, parts: dict, axis: str, shift: int = 1) -> dict:
+        """Rotate the blocks along ``axis``: cell ``j`` receives the block of
+        cell ``j - shift`` (``jax.lax.ppermute`` with ``perm = [(j, (j +
+        shift) % n)]``), on its own device. Blocks must share one shape.
+        Blocks that cross processes travel by ``batch_isend_irecv``, posted
+        in source-row order on both sides."""
+        out = {}
+        ops, landing = [], []
+        n = self.devices.shape[0] if axis == DATA_AXIS else self.devices.shape[1]
+        for group in self._groups(axis):
+            pos = {(c[0] if axis == DATA_AXIS else c[1]): c for c in group}
+            for j, cell in pos.items():
+                src = (j - shift) % n
+                if src in pos:
+                    out[cell] = parts[pos[src]].to(self.device(*cell))
+            if not self._crosses(axis):
+                continue
+            import torch.distributed as dist
+
+            pg, staged = self._dist_group(), self._staged()
+            m = group[0][1]
+            me = self.process_index
+            for s in range(n):  # source-row order, identical everywhere
+                d = (s + shift) % n
+                owner_s, owner_d = self.row_process[s], self.row_process[d]
+                if owner_s == owner_d:
+                    continue
+                tag = s * self.devices.shape[1] + m
+                if owner_s == me:
+                    t = parts[(s, m)].contiguous()
+                    ops.append(dist.P2POp(dist.isend, t.cpu() if staged else t,
+                                          owner_d, group=pg, tag=tag))
+                elif owner_d == me:
+                    like = parts[pos[next(iter(pos))]]
+                    buf = torch.empty(like.shape, dtype=like.dtype,
+                                      device="cpu" if staged else like.device)
+                    ops.append(dist.P2POp(dist.irecv, buf, owner_s, group=pg,
+                                          tag=tag))
+                    landing.append(((d, m), buf))
+        if ops:
+            import torch.distributed as dist
+
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for cell, buf in landing:
+            out[cell] = buf.to(self.device(*cell))
+        return out
+
+    def all_to_all(self, parts: dict, axis: str, split_dim: int,
+                   concat_dim: int) -> dict:
+        """The tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``):
+        each cell's block splits into n equal chunks along ``split_dim``;
+        chunk i goes to the i-th cell of its group, which concatenates what
+        it receives along ``concat_dim`` in source order. Across processes
+        one ``torch.distributed.all_to_all`` per group carries, to each
+        process, the chunks of this process's rows for that process's
+        rows."""
+        out = {}
+        for group in self._groups(axis):
+            n = self.shape[axis]
+            chunks = {}
+            for cell in group:
+                blk = parts[cell]
+                if blk.shape[split_dim] % n:
+                    raise ValueError(
+                        f"dim {split_dim} of size {blk.shape[split_dim]} does "
+                        f"not split over {n} cells")
+                chunks[cell] = torch.tensor_split(blk, n, dim=split_dim)
+            at = (lambda c: c[0]) if axis == DATA_AXIS else (lambda c: c[1])
+            local = {at(c): c for c in group}
+            recv = {}  # (src position, dst position) -> chunk
+            if self._crosses(axis):
+                recv = self._exchange_chunks(chunks, local)
+            for j, cell in local.items():
+                dev = self.device(*cell)
+                pieces = [chunks[local[s]][j] if s in local else recv[(s, j)]
+                          for s in range(n)]
+                out[cell] = torch.cat([p.to(dev) for p in pieces],
+                                      dim=concat_dim)
+        return out
+
+    def _exchange_chunks(self, chunks, local) -> dict:
+        """The cross-process part of ``all_to_all`` for one model column:
+        -> {(source row, local destination row): chunk}. One
+        ``all_to_all_single`` over flat buffers, split per process (the
+        processes may hold different numbers of rows)."""
+        import torch.distributed as dist
+
+        pg, staged = self._dist_group(), self._staged()
+        mine = sorted(local)
+        like = chunks[local[mine[0]]][0]
+        dev = "cpu" if staged else like.device
+        rows = {p: [d for d, q in enumerate(self.row_process) if q == p]
+                for p in self.processes}
+        me = self.process_index
+        send = [chunks[local[s]][d].reshape(-1)
+                for p in self.processes if p != me
+                for s in mine for d in rows[p]]
+        out_sizes = [0 if p == me else len(rows[p]) * len(mine) * like.numel()
+                     for p in self.processes]
+        in_sizes = list(out_sizes)
+        flat = (torch.cat(send) if send else like.new_empty(0)).to(dev)
+        recv_flat = torch.empty(sum(out_sizes), dtype=like.dtype, device=dev)
+        dist.all_to_all_single(recv_flat, flat, out_sizes, in_sizes, group=pg)
+        recv, at = {}, 0
+        for p in self.processes:
+            if p == me:
+                continue
+            for s in rows[p]:
+                for d in mine:
+                    recv[(s, d)] = recv_flat[at:at + like.numel()].view(like.shape)
+                    at += like.numel()
+        return recv
 
 
 def _rank() -> int:
@@ -209,17 +379,19 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 class MeshArray:
     """An array laid out on a mesh: ``shards[cell]`` is local cell
-    (d, m)'s block. ``axis`` names the mesh axis the leading dim is split
-    over ("data" or "model"; its blocks are equal), or None when every
-    cell holds the whole array."""
+    (d, m)'s block. ``axis`` names the mesh axis that dim ``dim`` (the
+    leading one by default) is split over ("data" or "model"; its blocks
+    are equal), or None when every cell holds the whole array."""
 
-    __slots__ = ("mesh", "shards", "axis", "shape")
+    __slots__ = ("mesh", "shards", "axis", "shape", "dim")
 
-    def __init__(self, mesh: Mesh, shards: dict, axis: str | None, shape):
+    def __init__(self, mesh: Mesh, shards: dict, axis: str | None, shape,
+                 dim: int = 0):
         self.mesh = mesh
         self.shards = shards
         self.axis = axis
         self.shape = tuple(shape)
+        self.dim = dim
 
     def block(self, d: int, m: int):
         return self.shards[(d, m)]
@@ -228,7 +400,7 @@ class MeshArray:
         """The whole array on the host (every process's blocks)."""
         if self.axis is None:
             return next(iter(self.shards.values())).cpu()
-        parts = self.mesh.all_gather(self.shards, self.axis)
+        parts = self.mesh.all_gather(self.shards, self.axis, dim=self.dim)
         return next(iter(parts.values())).cpu()
 
     def __array__(self, dtype=None, copy=None):

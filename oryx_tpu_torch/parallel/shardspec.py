@@ -11,8 +11,8 @@ scatter split, the per-shard sync accounting and the cross-shard merge
 
 The partitioning contract is ``process_groups``'s (contiguous groups in
 input order, sizes as equal as possible with the LARGER groups first, k
-clamped to [1, n]). The JAX package keeps it in parallel/submesh.py, whose
-pod half is not ported yet; the port keeps this copy here.
+clamped to [1, n]), kept once, in parallel/submesh.py, as in the JAX
+package.
 
 The port's serving views hold live rows only, so a store that grows past
 its plan appends the new rows to the LAST shard (``grown``): every row
@@ -27,20 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-
-def process_groups(process_ids: list[int], k: int) -> list[list[int]]:
-    """Partition an ordered unit list into min(k, len) contiguous groups:
-    contiguous runs of the input in input order, sizes as equal as
-    possible with the larger groups first, k clamped to [1, len]."""
-    k = max(1, min(k, len(process_ids)))
-    base, extra = divmod(len(process_ids), k)
-    groups: list[list[int]] = []
-    at = 0
-    for g in range(k):
-        n = base + (1 if g < extra else 0)
-        groups.append(process_ids[at : at + n])
-        at += n
-    return groups
+from oryx_tpu_torch.parallel.submesh import process_groups
 
 
 @dataclass(frozen=True)

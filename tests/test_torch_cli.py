@@ -3,7 +3,7 @@ tests/test_cli.py's contracts: topic setup, the stdin input pump, --set
 overlays, a serving subprocess, loadtest over HTTP/1.1 and HTTP/2 and
 across event loops, serving replicas sharing one port, the effective
 config, the platform switch and --app; then the commands this slice adds
-(import-pmml, flight, perf, tail, the pod refusal and the fleet's shard
+(import-pmml, flight, perf, tail, the pod launcher and the fleet's shard
 refusal), each beside
 the JAX package's CLI on the same input where both run: the same config
 lines (class paths aside), the same published messages, the same perf
@@ -124,6 +124,31 @@ def _wait_http(url, want=200, limit=60, proc=None):
             pass
         time.sleep(0.2)
     raise AssertionError(f"{url} answered {status}")
+
+
+def test_sigterm_during_start_closes_the_started_layer():
+    """A SIGTERM that arrives while the layer is still starting is handled
+    once start() has returned, so close() sees every thread start()
+    brought up (closing earlier left late event loops running and the
+    process waiting on them for good)."""
+    events = []
+
+    class Layer:
+        def start(self):
+            os.kill(os.getpid(), signal.SIGTERM)
+            time.sleep(0.05)  # a handler not held back runs here
+            events.append("started")
+
+        def await_termination(self):
+            events.append("await")
+
+        def close(self):
+            events.append("close")
+
+    before = signal.getsignal(signal.SIGTERM)
+    assert cli._run_until_interrupt(Layer()) == 0
+    assert events == ["started", "close", "await", "close"]
+    assert signal.getsignal(signal.SIGTERM) is before
 
 
 def test_serving_subprocess_round_trip(tmp_path):
@@ -367,10 +392,71 @@ def test_app_flag_survives_child_argv_rebuild():
 
 
 @pytest.mark.parametrize("command", ["pod"])
-def test_fleet_and_pod_are_not_ported_yet(command):
-    with pytest.raises(SystemExit, match="not ported yet") as ei:
-        cli.main([command, "--replicas", "3", "--compute", "2"])
-    assert "ROADMAP queue 1 item" in str(ei.value)
+def test_fleet_and_pod_are_not_ported_yet(command, monkeypatch):
+    """(Named when ``pod`` was refused.) ``cli pod --compute 2 --serving``
+    spawns two ``batch`` children of the port's CLI joined at one
+    rendezvous (process ids 0 and 1 of 2) and a single-process serving
+    child, passing every other flag through; a compute child that exits
+    tears the pod down (rc 1, every other child terminated)."""
+    spawned = []
+
+    class FakeChild:
+        def __init__(self, cmd, env=None):
+            self.cmd = cmd
+            self.returncode = None
+            self.polls = 0
+            self.terminated = False
+            spawned.append(self)
+
+        def poll(self):
+            self.polls += 1
+            if ("process-id=1" in " ".join(self.cmd) and self.polls > 2
+                    and self.returncode is None):
+                self.returncode = 3  # compute member 1 dies
+            return self.returncode
+
+        def terminate(self):
+            self.terminated = True
+            if self.returncode is None:
+                self.returncode = -signal.SIGTERM.value
+
+        def wait(self, timeout=None):
+            return self.returncode
+
+        def kill(self):
+            self.terminate()
+
+    monkeypatch.setattr(subprocess, "Popen", FakeChild)
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    rc = cli.main([command, "--replicas", "3", "--compute", "2", "--serving",
+                   "--set", "oryx.id=pod"])
+    assert rc == 1
+    roles = [c.cmd[3] for c in spawned]
+    assert roles == ["batch", "batch", "serving"]
+    for c in spawned:
+        assert c.cmd[1:3] == ["-m", "oryx_tpu_torch.cli"]
+        assert c.cmd[4:8] == ["--replicas", "3", "--set", "oryx.id=pod"]
+    sets = [[c.cmd[i + 1] for i in range(len(c.cmd) - 1)
+             if c.cmd[i] == "--set"] for c in spawned]
+    coord = {s for ss in sets[:2] for s in ss
+             if s.startswith("oryx.compute.distributed.coordinator-address=")}
+    assert len(coord) == 1 and coord.pop().split("=")[1].startswith("127.0.0.1:")
+    for pid in (0, 1):
+        assert f"oryx.compute.distributed.process-id={pid}" in sets[pid]
+        assert "oryx.compute.distributed.num-processes=2" in sets[pid]
+    assert "oryx.compute.distributed.num-processes=1" in sets[2]
+    assert spawned[0].terminated and spawned[2].terminated
+
+
+def test_pod_refuses_a_partial_host_without_a_coordinator():
+    """A host that runs only part of the pod must be told where process 0
+    is; a local range past --compute is refused."""
+    with pytest.raises(SystemExit, match="--coordinator is required"):
+        cli.main(["pod", "--compute", "4", "--local-start", "2",
+                  "--local-count", "2"])
+    with pytest.raises(SystemExit, match="exceeds --compute"):
+        cli.main(["pod", "--compute", "2", "--local-start", "1",
+                  "--local-count", "2", "--coordinator", "h:1"])
 
 
 def test_cli_fleet_refuses_shards(monkeypatch):

@@ -1043,3 +1043,51 @@ def test_sharded_dispatch_past_the_kernel_k_matches_unsharded(cuda_device,
         got = exact.gather(1, i.cpu().long())
         assert (got - v.cpu().double()).abs().max() <= tol
         assert (got - best).abs().max() <= tol
+
+
+def test_concurrent_als_and_rdf_builds_on_the_card(cuda_device):
+    """BASELINE.json configs[4] on the card (tests/test_multitenant.py's
+    contract): an ALS build and a forest built from two threads at once on
+    one card both come out right (AUC above 0.70, no NaN rows, accuracy
+    above 0.85)."""
+    import threading
+
+    from oryx_tpu_torch.ml.quality import build_and_evaluate
+    from oryx_tpu_torch.ops.rdf import bin_dataset, grow_forest, predict_class_probs
+
+    results, errors = {}, []
+
+    def als_tenant():
+        try:
+            results["als"] = build_and_evaluate(
+                n_users=1500, n_items=900, nnz=80_000, features=16,
+                iterations=4, compute_dtype="bfloat16", seed=5,
+                sample_users=300, device=cuda_device)
+        except Exception as e:  # noqa: BLE001
+            errors.append(("als", e))
+
+    def rdf_tenant():
+        try:
+            rng = np.random.default_rng(13)
+            x = rng.standard_normal((20_000, 12)).astype(np.float32)
+            y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+            binned = bin_dataset(x, np.zeros(12, dtype=bool),
+                                 np.zeros(12, dtype=np.int32), 16)
+            forest = grow_forest(binned, y, num_trees=6, max_depth=6,
+                                 impurity="entropy", n_classes=2,
+                                 device=cuda_device)
+            pred = predict_class_probs(forest, binned.binned)
+            results["rdf_acc"] = float((pred.argmax(-1) == y).mean())
+        except Exception as e:  # noqa: BLE001
+            errors.append(("rdf", e))
+
+    threads = [threading.Thread(target=als_tenant),
+               threading.Thread(target=rdf_tenant)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert results["als"].nan_rows == 0
+    assert results["als"].auc > 0.70
+    assert results["rdf_acc"] > 0.85

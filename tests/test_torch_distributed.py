@@ -3,7 +3,8 @@ single-process contracts on port objects), and a two-process gloo twin of
 tests/test_multihost.py's collectives step: a Gram sum across the process
 boundary, barrier, host all-gather and broadcast, and the whole
 tensor-parallel trainer with its data axis across both processes, against
-the same trainer in one process."""
+the same trainer in one process, and ring and Ulysses attention with the
+sequence across both processes."""
 
 from __future__ import annotations
 
@@ -179,6 +180,21 @@ model = train_als_tp(
 )
 np.testing.assert_allclose(model.x, want["x"], rtol=1e-5, atol=1e-6)
 np.testing.assert_allclose(model.y, want["y"], rtol=1e-5, atol=1e-6)
+
+# ring and Ulysses attention, the sequence split across both processes:
+# K/V blocks cross by batch_isend_irecv, the re-splits by all_to_all
+from oryx_tpu_torch.ops.attention import attention, ring_attention, ulysses_attention
+
+rng = np.random.default_rng(0)
+q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 16, 8)).astype(np.float32))
+           for _ in range(3))
+for causal in (False, True):
+    ref = attention(q, k, v, causal=causal).numpy()
+    ring = ring_attention(q, k, v, mesh, causal=causal)
+    assert set(ring.shards) == {(pid, 0), (pid, 1)}
+    np.testing.assert_allclose(ring.full().numpy(), ref, rtol=2e-5, atol=2e-5)
+    uly = ulysses_attention(q, k, v, mesh, causal=causal)
+    np.testing.assert_allclose(uly.full().numpy(), ref, rtol=2e-5, atol=2e-5)
 barrier("done")
 shutdown_distributed()
 print(f"MULTIPROCESS_OK {pid}", flush=True)
@@ -195,9 +211,11 @@ def _free_port() -> int:
 
 def test_two_process_gloo_collectives(tmp_path):
     """Two gloo processes: the Gram sum, barrier, all-gather and broadcast
-    give the exact local results, and the tensor-parallel trainer with its
+    give the exact local results, the tensor-parallel trainer with its
     data axis across the processes matches the same (2, 2) trainer in one
-    process (the sums cross processes in another order: rtol 1e-5)."""
+    process (the sums cross processes in another order: rtol 1e-5), and
+    ring and Ulysses attention across the processes match the exact
+    attention within 2e-5."""
     from oryx_tpu_torch.ops.als import aggregate_interactions, train_als_tp
     from oryx_tpu_torch.parallel.mesh import make_mesh
 

@@ -556,6 +556,39 @@ def test_replica_overlays_reject_empty_fleet():
         replica_overlays(load_config(), n=0)
 
 
+def test_wait_listening_outlasts_a_probe_that_reads_itself():
+    """A probe that connects before the replica listens may reach a socket
+    that answers with the probe's own request (a TCP self-connect in the
+    ephemeral port range): ``wait_listening`` keeps polling instead of
+    raising ``BadStatusLine``."""
+    import socket
+
+    from oryx_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(4)
+    port = srv.getsockname()[1]
+
+    def serve():
+        for reply in (None, b"HTTP/1.0 200 OK\r\nContent-Length: 0\r\n\r\n"):
+            conn, _ = srv.accept()
+            with conn:
+                got = conn.recv(4096)
+                conn.sendall(reply if reply is not None else got)
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    sup = FleetSupervisor(load_config(
+        overlay={"oryx.fleet.replicas": 1, "oryx.fleet.base-port": port}))
+    try:
+        sup.wait_listening(10)
+    finally:
+        srv.close()
+    t.join(5)
+    assert not t.is_alive()
+
+
 def test_supervisor_counts_deaths_not_poll_ticks():
     """A corpse waiting out its restart backoff must not be re-counted as
     a fresh fast fail by every supervision tick — crash-loop detection
@@ -1099,3 +1132,90 @@ def test_controller_post_waits_for_a_slow_delivery():
         assert short._post(r, "/control/model/approve", {"generation": 2}) is None
     finally:
         stub.close()
+
+
+def test_canary_samples_count_only_once_the_canary_serves_the_generation(tmp_path):
+    """The canary's gate lists generation 3 while its view still builds and
+    it serves generation 2: samples landing then (recall 1.0, the
+    incumbent's answers) must not count toward generation 3's verdict. The
+    controller promoted a corrupted generation on such evidence in a card
+    run; it now counts from the first probe that finds the canary serving
+    the generation, and rolls it back on the new generation's own
+    samples."""
+    from oryx_tpu_torch.common.flightrec import configure_flightrec
+    from oryx_tpu_torch.fleet.control import FleetController
+
+    def canary_h(served, gens, samples, recall):
+        return json.dumps({
+            "status": "up", "degraded": [], "model_generation": served,
+            "model_gate": {"mode": "canary", "generations": gens},
+            "quality": {"samples": samples, "live_recall_at_10": recall},
+            "slo_burn": {"quality": {"fast": 0.0}},
+        }).encode()
+
+    hold_h = json.dumps({
+        "status": "up", "degraded": [], "model_generation": 2,
+        "model_gate": {"mode": "hold", "watermark": 2},
+        "quality": {"samples": 50, "live_recall_at_10": 1.0},
+    }).encode()
+    posts: list[str] = []
+
+    def ok(method, path):
+        posts.append(f"{method} {path}")
+        return (200, [], b'{"ok":true}')
+
+    s0 = _StubReplica(ok, healthz=canary_h(2, [2, 3], 40, 1.0))
+    s1 = _StubReplica(ok, healthz=hold_h)
+    front = _front_for([s0, s1], policy="hash", readmit_after=1)
+
+    class _Sup:
+        gave_up: list = []
+
+    cfg = load_config(overlay={
+        "oryx.fleet.canary.enabled": True,
+        "oryx.fleet.canary.traffic-fraction": 0.5,
+        "oryx.fleet.canary.min-samples": 8,
+        "oryx.monitoring.flight.dir": str(tmp_path / "flight"),
+    })
+    configure_flightrec(cfg)
+    ctl = FleetController(cfg, _Sup(), front)  # never started: manual ticks
+
+    def probed(samples, served):
+        deadline = time.time() + 10
+        while ((front._by_id["r0"].quality or {}).get("samples") != samples
+               or front._by_id["r0"].generation != served):
+            assert time.time() < deadline
+            time.sleep(0.05)
+
+    try:
+        deadline = time.time() + 10
+        while not all(
+            r.routable and isinstance(r.model_gate, dict) for r in front.replicas
+        ):
+            assert time.time() < deadline, [r.snapshot() for r in front.replicas]
+            time.sleep(0.05)
+        probed(40, 2)
+        ctl.tick()  # generation 3 in the canary's gate: the split opens
+        assert front.canary() == ("r0", 0.5)
+        # still serving generation 2: 20 more samples at recall 1.0
+        s0.healthz = canary_h(2, [2, 3], 60, 1.0)
+        probed(60, 2)
+        ctl.tick()
+        assert ctl._rollout is not None and not ctl._rollout.promoting
+        assert not any("approve" in p for p in posts)
+        # the view is built: generation 3 serves, its window restarted
+        s0.healthz = canary_h(3, [2, 3], 62, 0.2)
+        probed(62, 3)
+        ctl.tick()  # counting starts here
+        assert ctl._rollout is not None and not ctl._rollout.promoting
+        s0.healthz = canary_h(3, [2, 3], 70, 0.2)
+        probed(70, 3)
+        ctl.tick()  # 8 samples of generation 3 at recall 0.2: rollback
+        assert ctl._rollout is None
+        assert 3 in ctl.vetoed()
+        assert any("rollback" in p for p in posts), posts
+        assert not any("approve" in p for p in posts), posts
+    finally:
+        front.close()
+        for s in (s0, s1):
+            s.close()

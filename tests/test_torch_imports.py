@@ -299,7 +299,9 @@ def test_batch_and_speed_layers_and_cli_raise_without_cuda(monkeypatch):
     for command in ("batch", "speed"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([command, "--app", "als"])
-    with pytest.raises(ValueError, match="item 11"):
+    # a pod config is no longer refused: the batch command joins the
+    # process group first, which needs the rendezvous address
+    with pytest.raises(ValueError, match="coordinator-address"):
         cli.main(["batch", "--app", "als", "--set",
                   "oryx.compute.distributed.num-processes=2"])
 
@@ -323,7 +325,7 @@ def test_bus_and_cli_modules_import_with_jax_blocked():
     example app, imported alone in a fresh process with jax blocked, loads
     no module of the JAX package; kafka:// resolves to the port's client,
     the native appender and the example app are there, and the CLI refuses
-    only pod."""
+    no command (``pod`` is ported)."""
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -339,7 +341,8 @@ def test_bus_and_cli_modules_import_with_jax_blocked():
         assert issubclass(NativeAppender, NativeParser)
         assert app_overlay("example")["oryx.batch.update-class"].startswith(
             "oryx_tpu_torch.apps.example.")
-        assert set(cli._NOT_PORTED) == {{"pod"}}
+        assert not hasattr(cli, "_NOT_PORTED")
+        assert callable(cli.cmd_pod) and callable(cli._pod_child_flags)
         leaked = sorted(
             k for k in sys.modules
             if k == "oryx_tpu" or k.startswith("oryx_tpu.")
@@ -465,20 +468,23 @@ def test_recall_gate_needs_the_card_unless_told(monkeypatch):
         evaluate_score_mode_recall(n_items=100, n_queries=4)
 
 
-# the multi-device slice: the mesh, row-shard plans, the process group and
-# the cross-shard top-k
+# the multi-device slices: the mesh, row-shard plans, the process group,
+# the cross-shard top-k, the sub-mesh partitioning, sequence-parallel
+# attention and the dry run
 MULTI_DEVICE_MODULES = (
     "oryx_tpu_torch.parallel", "oryx_tpu_torch.parallel.mesh",
     "oryx_tpu_torch.parallel.shardspec", "oryx_tpu_torch.parallel.distributed",
-    "oryx_tpu_torch.ops.shard_topk",
+    "oryx_tpu_torch.ops.shard_topk", "oryx_tpu_torch.parallel.submesh",
+    "oryx_tpu_torch.ops.attention", "oryx_tpu_torch.dryrun",
 )
 
 
 def test_multi_device_modules_import_with_jax_blocked():
     """Each module of the multi-device slice, imported alone in a fresh
     process with jax blocked, loads no module of the JAX package (the
-    row-shard plan keeps its own copy of ``process_groups``), and a
-    sharded view's top-k runs there on the CPU."""
+    row-shard plan and the sub-meshes share the port's one
+    ``process_groups``), and a sharded view's top-k and ring attention run
+    there on the CPU."""
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -494,6 +500,12 @@ def test_multi_device_modules_import_with_jax_blocked():
         v, i = topk_dot_batch_sharded(torch.ones(1, 4), sm, k=4)
         assert i.shape == (1, 4)
         assert host_mesh(2, "cpu").shape == {{"data": 2, "model": 1}}
+        from oryx_tpu_torch.ops.attention import ring_attention
+        from oryx_tpu_torch.parallel.shardspec import process_groups as a
+        from oryx_tpu_torch.parallel.submesh import process_groups as b
+        assert a is b
+        qkv = torch.ones(3, 8, 4)
+        assert ring_attention(*qkv, host_mesh(2, "cpu")).full().shape == (8, 4)
         leaked = sorted(
             k for k in sys.modules
             if k == "oryx_tpu" or k.startswith("oryx_tpu.")

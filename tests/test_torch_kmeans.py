@@ -170,9 +170,95 @@ def test_train_kmeans_timings_and_drops_nan_rows():
 
 
 def test_mesh_raises():
-    pts, _ = _points(n=100, k=2)
-    with pytest.raises(ValueError, match="queue 1 item 11"):
-        P.train_kmeans(pts, 2, mesh=object(), device=CPU)
+    """(Named when a mesh was refused.) Training on a (2, 1) CPU mesh
+    agrees with one device (``_mesh_matches_single_device``)."""
+    _mesh_matches_single_device(2)
+
+
+def test_mesh_kmeans_matches_single_device_on_four_cells():
+    _mesh_matches_single_device(4)
+
+
+def _mesh_matches_single_device(data):
+    """Training on a (data, 1) CPU mesh from the same generator as a
+    single-device run: the same init, then Lloyd's steps whose sums are
+    summed over the cells (pad rows weigh zero; 2,401 points do not split
+    evenly): centers within 1e-5 relative to the largest center entry,
+    cluster sizes equal."""
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    pts, _ = _points(n=2401, k=5)
+    mesh = make_mesh(MeshSpec(data=data, model=1), [CPU] * data)
+    one = P.train_kmeans(pts, 5, iterations=10, device=CPU,
+                         generator=torch.Generator().manual_seed(4))
+    on_mesh = P.train_kmeans(pts, 5, iterations=10, mesh=mesh,
+                             generator=torch.Generator().manual_seed(4))
+    np.testing.assert_allclose(on_mesh.centers, one.centers, rtol=0,
+                               atol=1e-5 * np.abs(one.centers).max())
+    np.testing.assert_array_equal(on_mesh.counts, one.counts)
+    assert on_mesh.counts.sum() == len(pts)
+
+
+@pytest.mark.parametrize("iterations", [1, 8])
+def test_lloyd_mesh_matches_jax_mesh(iterations):
+    """The JAX package's sharded Lloyd (its train_kmeans mesh path: points
+    and zero-weight pad rows over a 4-device "data" axis) against
+    ``lloyd_mesh`` on a 4-cell CPU mesh, same centers0 and weights:
+    centers within 1e-5 relative to the largest center entry, counts
+    equal."""
+    import jax
+
+    from oryx_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+    from oryx_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from oryx_tpu.parallel.mesh import shard_array
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    pts, _ = _points(n=2401)
+    c0 = pts[:6].copy()
+    w = np.ones(len(pts), np.float32)
+    w[::7] = 0.0
+    pad = (-len(pts)) % 4
+    pj = np.concatenate([pts, np.zeros((pad, pts.shape[1]), np.float32)])
+    wj = np.concatenate([w, np.zeros(pad, np.float32)])
+    jmesh = jax_make_mesh(JaxMeshSpec(data=4, model=1), jax.devices("cpu")[:4])
+    cj, nj = J.lloyd_jit(shard_array(pj, jmesh), shard_array(wj, jmesh),
+                         jnp.asarray(c0), iterations=iterations)
+    cp, np_ = P.lloyd_mesh(pts, w, c0, iterations=iterations,
+                           mesh=make_mesh(MeshSpec(data=4, model=1), [CPU] * 4))
+    cj = np.asarray(cj)
+    np.testing.assert_allclose(cp.numpy(), cj, rtol=0, atol=1e-5 * np.abs(cj).max())
+    np.testing.assert_array_equal(np_.numpy(), np.asarray(nj))
+
+
+def test_kmeans_app_trains_on_its_mesh(tmp_path):
+    """KMeansUpdate takes ``mesh=`` (or ``oryx.compute.mesh.*``) and builds
+    through ``_build_mesh``: a (2, 1) mesh's model lands within the
+    single-device model's SSE."""
+    from oryx_tpu_torch.apps.kmeans.batch import KMeansUpdate
+    from oryx_tpu_torch.bus.api import KeyMessage
+    from oryx_tpu_torch.common.config import load_config
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cfg = load_config(overlay={
+        "oryx.input-schema.num-features": 2,
+        "oryx.input-schema.numeric-features": ["0", "1"],
+        "oryx.kmeans.hyperparams.k": 3,
+        "oryx.kmeans.iterations": 8,
+        "oryx.compute.mesh.data": 2,
+    })
+    upd = KMeansUpdate(cfg, device=CPU)
+    assert upd.mesh is not None and upd.mesh.shape == {"data": 2, "model": 1}
+    assert upd._build_mesh() is upd.mesh
+    pts, _ = _points(n=900, d=2, k=3)
+    rows = [KeyMessage(None, f"{a},{b}") for a, b in pts]
+    PortRandom.use_test_seed()
+    art = upd.build_model(rows, {"k": 3})
+    PortRandom.use_test_seed()
+    ref = KMeansUpdate(cfg, device=CPU, mesh=make_mesh(MeshSpec(1, 1), [CPU]))
+    art1 = ref.build_model(rows, {"k": 3})
+    s_mesh = P.sum_squared_error(pts, art.tensors["centers"], device=CPU)
+    s_one = P.sum_squared_error(pts, art1.tensors["centers"], device=CPU)
+    assert s_mesh == pytest.approx(s_one, rel=1e-5)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -550,12 +550,37 @@ def test_incremental_disabled_by_config(pkg, tmp_path):
 # ---- the port only ------------------------------------------------------------
 
 def test_port_rejects_a_pod_config(tmp_path):
-    ns = _namespace("oryx_tpu_torch")
-    cfg = _cfg(ns, tmp_path, "pod", **{"oryx.compute.distributed.num-processes": 2})
-    with pytest.raises(ValueError, match="item 11"):
-        ns.BatchLayer(cfg, update=_recording_update(ns))
-    with pytest.raises(ValueError, match="item 11"):
-        ns.als_update(cfg)
+    """(Named when a pod config was refused.) A config with
+    ``oryx.compute.distributed.num-processes = 2`` builds pod members, as
+    in the JAX package: process 0 is the leader and publishes; process 1
+    keeps its storage in per-process dirs, reads through a consumer group
+    of its own, prefetches nothing and publishes through the null
+    producer. Both packages agree on every one of these."""
+    for name in ("oryx_tpu", "oryx_tpu_torch"):
+        ns = _namespace(name)
+        members = {}
+        for pid in (0, 1):
+            cfg = _cfg(ns, tmp_path / f"{name}-{pid}", f"pod-{name}-{pid}", **{
+                "oryx.compute.distributed.num-processes": 2,
+                "oryx.compute.distributed.process-id": pid,
+            })
+            layer = ns.BatchLayer(cfg, update=_recording_update(ns))
+            layer.ensure_streams()
+            members[pid] = layer
+            assert ns.als_update(cfg)._pod is True
+        lead, other = members[0], members[1]
+        assert lead.is_leader and not other.is_leader
+        assert not lead.prefetch_enabled and not other.prefetch_enabled
+        assert other.data_dir.endswith("proc-1")
+        assert other.model_dir.endswith("proc-1")
+        assert other.group.endswith("-batch-proc1")
+        assert lead.group.endswith("-batch")
+        assert type(lead._producer).__name__ == "TopicProducer"
+        assert type(other._producer).__name__ == "_NullProducer"
+        # one process in the group: the window is this member's own
+        assert lead._pod_window(1234) == (1234, None)
+        for layer in members.values():
+            layer.close()
 
 
 def test_port_profile_dir_writes_a_torch_trace(tmp_path):

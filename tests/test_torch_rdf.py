@@ -255,10 +255,75 @@ def test_route_and_predictions_match_jax_on_the_same_forest():
 
 
 def test_mesh_raises():
-    data, y = _xor_data(200)
-    with pytest.raises(ValueError, match="queue 1 item 11"):
-        P.grow_forest(data, y, num_trees=2, max_depth=3, impurity="entropy",
-                      n_classes=2, mesh=object(), device=CPU)
+    """(Named when a mesh was refused.) The tree axis over a (2, 1) CPU
+    mesh: the forest is the single-device one
+    (``test_mesh_forest_is_the_single_device_forest``)."""
+    test_mesh_forest_is_the_single_device_forest((2, 1), 4)
+
+
+@pytest.mark.parametrize("shape,trees", [((4, 1), 8), ((2, 2), 6), ((4, 1), 6)])
+def test_mesh_forest_is_the_single_device_forest(shape, trees):
+    """The tree axis over a CPU mesh's "data" axis: each row grows its
+    trees from the weights and the feature-subset draws one device uses,
+    so the forest is identical to the single-device one; a tree count the
+    axis does not divide (6 over 4) grows whole on the first cell,
+    identical too."""
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    data, y = _multiclass_data(1500)
+    kw = dict(num_trees=trees, max_depth=5, impurity="gini", n_classes=5)
+    PortRandom.use_test_seed()
+    one = P.grow_forest(data, y, device=CPU, **kw)
+    mesh = make_mesh(MeshSpec(*shape), [CPU] * (shape[0] * shape[1]))
+    PortRandom.use_test_seed()
+    on_mesh = P.grow_forest(data, y, mesh=mesh, **kw)
+    np.testing.assert_array_equal(on_mesh.feature, one.feature)
+    np.testing.assert_array_equal(on_mesh.split_left, one.split_left)
+    np.testing.assert_array_equal(on_mesh.class_counts, one.class_counts)
+    np.testing.assert_array_equal(on_mesh.feature_importances,
+                                  one.feature_importances)
+
+
+def test_mesh_forest_matches_jax_mesh_forest():
+    """Both packages with a 2-row "data" mesh, every feature a candidate
+    (the per-node subsets are generator streams of their own): the JAX
+    package's sharded forest and the port's mesh forest, from the same
+    bootstrap weights, split alike except at float64 near ties."""
+    import jax
+
+    from oryx_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+    from oryx_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from oryx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    data, y = _xor_data(2000)
+    kw = dict(num_trees=4, max_depth=4, impurity="entropy", n_classes=2,
+              feature_subset="all")
+    JaxRandom.use_test_seed()
+    fj = J.grow_forest(data, y, mesh=jax_make_mesh(
+        JaxMeshSpec(data=2, model=1), jax.devices("cpu")[:2]), **kw)
+    PortRandom.use_test_seed()
+    fp = P.grow_forest(_port_data(data), y,
+                       mesh=make_mesh(MeshSpec(2, 1), [CPU] * 2), **kw)
+    np.testing.assert_array_equal(fp.feature, fj.feature)
+    np.testing.assert_array_equal(fp.split_left, fj.split_left)
+    np.testing.assert_array_equal(fp.class_counts, fj.class_counts)
+
+
+def test_rdf_app_trains_on_its_mesh():
+    """RDFUpdate takes ``mesh=`` (or ``oryx.compute.mesh.*``) and grows
+    through ``_build_mesh``."""
+    from oryx_tpu_torch.apps.rdf.batch import RDFUpdate
+    from oryx_tpu_torch.common.config import load_config
+
+    cfg = load_config(overlay={
+        "oryx.input-schema.num-features": 3,
+        "oryx.input-schema.categorical-features": ["2"],
+        "oryx.input-schema.target-feature": "2",
+        "oryx.compute.mesh.data": 2,
+    })
+    upd = RDFUpdate(cfg, device=CPU)
+    assert upd.mesh is not None and upd.mesh.shape == {"data": 2, "model": 1}
+    assert upd._build_mesh() is upd.mesh
 
 
 def test_grow_forest_defaults_to_cuda(monkeypatch):

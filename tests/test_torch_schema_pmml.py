@@ -6,8 +6,8 @@ fixture that names the JAX package or the port, so it runs against both;
 then both packages on the same inputs, where the outputs must be equal.
 
 The PMML documents are tests/test_pmml.py's. Its two ``cli import-pmml``
-cases are not mirrored: that subcommand is not ported (ROADMAP queue 1
-item 10).
+cases are mirrored in tests/test_torch_cli.py, beside the port's
+``import-pmml`` command.
 """
 
 from __future__ import annotations

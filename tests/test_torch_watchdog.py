@@ -364,9 +364,6 @@ from oryx_tpu_torch.common.config import load_config  # noqa: E402
 from oryx_tpu_torch.serving.server import ServingLayer  # noqa: E402
 
 N_ITEMS, N_USERS, FEATURES = 500, 40, 8
-# /healthz keys whose planes the port does not have yet: sharded views
-# (ROADMAP queue 1 item 11)
-UNPORTED_HEALTHZ_KEYS = {"shards"}
 
 
 @pytest.fixture(scope="module")
@@ -482,7 +479,9 @@ def test_healthz_has_the_jax_packages_keys(layers):
     (js, jbody), (ps, pbody) = _healthz(layers["jax"]), _healthz(
         layers["port"])
     assert js == ps == 200
-    assert set(pbody) == set(jbody) - UNPORTED_HEALTHZ_KEYS
+    # both packages add "shards" only to a sharded view's /healthz
+    assert set(pbody) == set(jbody)
+    assert "shards" not in pbody
     for key in ("mfu", "occupancy", "slo_burn", "latency_budget"):
         assert key in pbody
     assert pbody["occupancy"]["mean"] == 1.0
