@@ -34,6 +34,7 @@ from oryx_tpu_torch.ops.rdf import (
     Forest,
     bin_column,
     class_probs_from_leaves,
+    heap_to_node_id,
     node_id_to_heap,
     regression_from_leaves,
     route_binned_device,
@@ -255,3 +256,7 @@ def tokens_to_features(schema: InputSchema, tokens: list[str]) -> tuple[dict, st
         elif schema.is_active(i) and tok != "":
             features[names[i]] = tok
     return features, target
+
+
+def node_id(slot: int) -> str:
+    return heap_to_node_id(slot)

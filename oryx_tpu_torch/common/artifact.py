@@ -359,13 +359,8 @@ class ArtifactRelay:
         consumer replaying a long topic history must prune exactly like a
         materializing one would, or its MAX_CACHED stops bounding the
         shared root whenever the artifacts are already decoded."""
-        import os
-
         dest = self._dest(ref)
-        try:
-            os.utime(dest)
-        except OSError:
-            pass
+        self._stamp(dest)
         self._evict_cache_dirs(keep=dest)
         self._fire_parked(ref)
 
@@ -450,44 +445,63 @@ class ArtifactRelay:
             os.replace(tmp, dest)
         except OSError:
             shutil.rmtree(tmp, ignore_errors=True)  # another process won
-        try:
-            os.utime(dest)  # shared LRU stamp (see _evict_cache_dirs)
-        except OSError:
-            pass
+        self._stamp(dest)
         self._evict_cache_dirs(keep=dest)
         self._fire_parked(ref)
+
+    def _cache_dirs(self) -> list[Path]:
+        return [
+            d
+            for d in self._root().iterdir()
+            if d.is_dir() and not d.name.startswith(".")
+        ]
+
+    @staticmethod
+    def _mtime_ns(d: Path) -> int:
+        try:
+            return d.stat().st_mtime_ns
+        except OSError:  # concurrently evicted by a sibling
+            return 0
+
+    def _stamp(self, dest: Path) -> None:
+        """Bump ``dest``'s shared LRU stamp (see _evict_cache_dirs) to
+        strictly above every stamp under the cache root, or to the clock
+        where that is later. The file system's clock is coarse: two dirs
+        touched within one tick would tie, and the older one could
+        outlive the newer."""
+        import os
+        import time
+
+        try:
+            newest = max((self._mtime_ns(d) for d in self._cache_dirs()),
+                         default=0)
+            t = max(time.time_ns(), newest + 1)
+            os.utime(dest, ns=(t, t))
+        except OSError:
+            pass
 
     def _evict_cache_dirs(self, keep: Path) -> None:
         """Cross-PROCESS LRU over the shared per-user cache root: speed
         and serving consumers on one host share the root, so eviction
-        must rank by shared state — directory mtimes, bumped on every
-        materialize and resolve — not a per-process dict. (Round-4
-        advice: per-process LRU deleted dirs a sibling process still held
-        in its in-memory cache, silently dropping its MODEL update.) A
-        dir in active use carries a fresh stamp and survives; any
-        residual race is caught by resolve()'s existence re-check."""
+        must rank by shared state — directory mtimes, stamped strictly
+        above the root's newest on every materialize and resolve
+        (``_stamp``), ties broken by name — not a per-process dict.
+        (Round-4 advice: per-process LRU deleted dirs a sibling process
+        still held in its in-memory cache, silently dropping its MODEL
+        update.) A dir in active use carries the newest stamp and
+        survives; any residual race is caught by resolve()'s existence
+        re-check."""
         import shutil
 
         try:
-            dirs = [
-                d
-                for d in self._root().iterdir()
-                if d.is_dir() and not d.name.startswith(".")
-            ]
+            dirs = self._cache_dirs()
         except OSError:
             return
         if len(dirs) <= self.MAX_CACHED:
             return
-
-        def mtime(d: Path) -> float:
-            try:
-                return d.stat().st_mtime
-            except OSError:  # concurrently evicted by a sibling
-                return 0.0
-
         with self._lock:
             pinned = {self._dest(r).name for r in self._pinned}
-        dirs.sort(key=mtime)
+        dirs.sort(key=lambda d: (self._mtime_ns(d), d.name))
         for d in dirs[: len(dirs) - self.MAX_CACHED]:
             if d != keep and d.name not in pinned:
                 shutil.rmtree(d, ignore_errors=True)
@@ -557,14 +571,9 @@ class ArtifactRelay:
         re-enter history). Pinning is advisory: it protects the CACHE
         copy only, and a ref resolving through its original path needs no
         protection at all."""
-        import os
-
         with self._lock:
             self._pinned[ref] = self._pinned.get(ref, 0) + 1
-        try:
-            os.utime(self._dest(ref))
-        except OSError:
-            pass  # not materialized here (original path, inline MODEL)
+        self._stamp(self._dest(ref))  # absent: original path, inline MODEL
 
     def unpin(self, ref: str) -> None:
         """Drop one pin on a ref; at zero the dir rejoins the normal LRU
@@ -586,12 +595,7 @@ class ArtifactRelay:
             return str(p)
         c = self._dest(ref)  # derived path: a SIBLING process's
         if (c / MODEL_FILENAME).exists():  # materialization is a hit too
-            import os
-
-            try:
-                os.utime(c)  # shared LRU stamp: in-use dirs survive
-            except OSError:
-                pass
+            self._stamp(c)  # in-use dirs survive
             return str(c)
         raise FileNotFoundError(
             f"MODEL-REF {ref} is not readable locally and no complete "

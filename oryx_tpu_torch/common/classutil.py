@@ -33,3 +33,10 @@ def load_instance_of(dotted: str, expected: type | None = None, *args: Any, **kw
         raise TypeError(f"{dotted} is not a {expected.__name__}")
     return inst
 
+
+def class_exists(dotted: str) -> bool:
+    try:
+        load_class(dotted)
+        return True
+    except Exception:
+        return False

@@ -1,8 +1,7 @@
 """Parallel task fan-out helpers (the port's copy of
-``collect_in_parallel``, ``free_port_run`` and ``config_overlay_from_sets``
-from oryx_tpu/common/executil.py; its CPU child environment has no
-counterpart: a port process runs on the CPU when
-``oryx.compute.platform = cpu`` says so, not through its environment).
+oryx_tpu/common/executil.py; its CPU child environment has no counterpart:
+a port process runs on the CPU when ``oryx.compute.platform = cpu`` says
+so, not through its environment).
 
 Mirrors the reference's ExecUtils (framework/oryx-common
 .../lang/ExecUtils.java:32-75): run N tasks at parallelism P, optionally on a
@@ -13,10 +12,21 @@ evaluate hyperparameter candidates concurrently (MLUpdate.java:253-258).
 from __future__ import annotations
 
 import json
+import logging
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, TypeVar
+from typing import Callable, Sequence, TypeVar
+
+log = logging.getLogger(__name__)
 
 T = TypeVar("T")
+
+
+def do_in_parallel(
+    num_tasks: int,
+    task: Callable[[int], None],
+    parallelism: int | None = None,
+) -> None:
+    collect_in_parallel(num_tasks, task, parallelism)
 
 
 def collect_in_parallel(
@@ -35,6 +45,26 @@ def collect_in_parallel(
         return [task(i) for i in range(num_tasks)]
     with ThreadPoolExecutor(max_workers=parallelism) as pool:
         return list(pool.map(task, range(num_tasks)))
+
+
+def map_in_parallel(items: Sequence[T], fn: Callable[[T], "T"], parallelism: int = 4) -> list:
+    return collect_in_parallel(len(items), lambda i: fn(items[i]), parallelism)
+
+
+class LoggingRunnable:
+    """Wrap a callable so exceptions are logged, not swallowed by executor
+    futures (reference LoggingCallable)."""
+
+    def __init__(self, fn: Callable[[], None], name: str = "task"):
+        self.fn = fn
+        self.name = name
+
+    def __call__(self) -> None:
+        try:
+            self.fn()
+        except Exception:  # noqa: BLE001 - must log whatever escapes a thread
+            log.exception("unexpected error in %s", self.name)
+            raise
 
 
 def free_port_run(n: int, host: str = "127.0.0.1", attempts: int = 50) -> int:

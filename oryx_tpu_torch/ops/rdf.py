@@ -177,6 +177,11 @@ class Forest:
     def is_classification(self) -> bool:
         return self.class_counts is not None
 
+    def weights(self) -> np.ndarray:
+        """Uniform tree weights (the reference forest votes uniformly for
+        MLlib models; DecisionForest.java weights)."""
+        return np.full(self.num_trees, 1.0 / self.num_trees)
+
 
 # ---------------------------------------------------------------------------
 # growth

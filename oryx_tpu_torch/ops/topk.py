@@ -18,6 +18,12 @@ the card ``y`` must be a pitched view (ops/transfer.py): rows 16-byte
 aligned at a stride that is a multiple of 16 bytes. The wrapper raises on
 any other layout; it never copies Y per call.
 
+The split plan comes from a block table keyed by what a block's shared
+memory depends on (``tuned_blocks``; the counterpart of pallas_topk's block
+tuning): by default as many splits as fill one wave of the card, else a
+split length set by the ``ORYX_TOPK_BLOCKS`` override or locked by
+``autotune_blocks``, which times candidate plans on the card.
+
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 only then: on a CUDA tensor it launches its kernel or raises. Each kernel
 counts its launches in ``LAUNCHES``.
@@ -295,15 +301,16 @@ def block_geometry(dtype: torch.dtype) -> tuple[int, int]:
 
 def plan_splits(b: int, n_items: int, sm_count: int, blocks_per_sm: int = 4,
                 rows_per_block: int = ROWS_PER_BLOCK,
-                tile_items: int = TILE_ITEMS) -> tuple[int, int]:
+                tile_items: int = TILE_ITEMS,
+                min_tiles: int = 4) -> tuple[int, int]:
     """(n_splits, split_len) for the partial kernel: as many item splits as
     let (row blocks x splits) run in one wave of ``blocks_per_sm`` resident
     blocks on every SM (at least one split), each split a whole number of
-    ``tile_items``-item tiles and at least four of them."""
+    ``tile_items``-item tiles and at least ``min_tiles`` of them."""
     row_blocks = -(-b // rows_per_block)
     tiles = -(-n_items // tile_items)
     splits = max(1, blocks_per_sm * sm_count // row_blocks)
-    splits = min(splits, max(1, tiles // 4))
+    splits = min(splits, max(1, tiles // min_tiles))
     split_len = -(-tiles // splits) * tile_items
     return -(-n_items // split_len), split_len
 
@@ -341,15 +348,185 @@ def check_features(features: int, dtype: torch.dtype) -> None:
         )
 
 
-def launch_plan(b: int, y: torch.Tensor, kb: int) -> tuple[int, int]:
-    """``plan_splits`` for ``b`` query rows against the item matrix ``y`` on
-    its card, with the block geometry of ``y``'s type and as many resident
-    blocks per SM as the partial kernel's shared memory and registers allow
-    there (asked of the CUDA runtime once per shape)."""
-    key = (y.device.index, y.shape[1], kb, y.element_size())
+# ---------------------------------------------------------------------------
+# block tuning: a per-(feature chunks, itemsize, kb) table, autotunable on
+# the card
+# ---------------------------------------------------------------------------
+
+# shared memory of the partial kernel's block; must match mma_plan in
+# csrc/topk_dot.cu
+_CHUNK_BYTES = 128                             # one swizzle span of features
+_SWIZZLE_ALIGN = 1024                          # alignment slack
+_TILE_CHUNK_BYTES = TILE_ITEMS * _CHUNK_BYTES  # an item chunk: a ring stage
+_QUERY_CHUNK_BYTES = ROWS_PER_BLOCK * _CHUNK_BYTES
+_MAX_STAGES = 8                                # ring stages
+_TAIL = 24                                     # unsorted candidates a row holds
+MAX_SMEM = 232_448                             # a block's limit (kMaxSmem)
+_SM_SMEM = 233_472                             # an SM's shared memory
+_BLOCK_RESERVED = 1024                         # the runtime's share per block
+
+MIN_SPLIT = 4 * TILE_ITEMS  # plan_splits' shortest split: four tiles
+MAX_SPLITS = 65_535         # the merge's bound on lists a row (topk_merge)
+# The [S, B, kb] partial lists of a plan of more than one split may take
+# at most this much card memory. Reading them once at the card's 3.35 TB/s
+# takes 80 us, more than the bound of the whole serving call (B = 512,
+# 1M x 50 bf16 items: 52 us), so a plan with more scratch has given up on
+# the kernel's bound before it launches. One split is never refused: its
+# lists are the least any plan needs.
+PARTIAL_BUDGET_BYTES = 256 << 20
+
+# block_key(...) -> (rows, items): the query rows of a block and the split
+# length, or items None for plan_splits' wave on the caller's card. Filled
+# lazily by the solver; overwritten by autotune_blocks' measured winners and
+# by the ORYX_TOPK_BLOCKS override ("rows,items"). Every launch_plan without
+# explicit blocks consults it, so one autotune pass retunes every later
+# dispatch of that key. Its name is not the JAX package's
+# ORYX_PALLAS_BLOCKS: those values are TPU VMEM blocks, and read as a
+# Hopper plan they would mean something else.
+_BLOCK_TABLE: dict[tuple[int, int, int], tuple[int, int | None]] = {}
+BLOCKS_ENV = "ORYX_TOPK_BLOCKS"
+
+# split lengths autotune_blocks measures, beside the wave-filling plan: from
+# MIN_SPLIT up to the length that still gives the serving shape (1M items,
+# 8 row blocks of B = 512) about one block per SM (16 splits x 8 = 128 of
+# 132). Shared memory lets 1 to 4 partial blocks reside on an SM, so one
+# wave is 132 to 528 blocks: at 1M items the range spans from under a
+# quarter of a wave to about 30 waves. Shorter splits pay a block's start
+# (its query block, its empty lists, where every score is a candidate) more
+# often; longer ones leave SMs idle.
+AUTOTUNE_BLOCK_I = tuple(1 << e for e in range(8, 17))  # 256 ... 65,536
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << max(0, n.bit_length() - 1)
+
+
+def feature_chunks(features: int, itemsize: int) -> int:
+    """The 128-byte chunks of a row of ``features`` items of ``itemsize``
+    bytes: what a block's shared memory grows with."""
+    return -(-features * itemsize // _CHUNK_BYTES)
+
+
+def block_key(features: int, itemsize: int, kb: int) -> tuple[int, int, int]:
+    """The block table's key: everything the partial kernel's shared memory
+    depends on (``_working_set_bytes``)."""
+    return feature_chunks(features, itemsize), int(itemsize), int(kb)
+
+
+def _working_set_bytes(features: int, itemsize: int, kb: int) -> int:
+    """A partial block's dynamic shared memory for a top-kb of rows of
+    ``features`` items of ``itemsize`` bytes: the alignment slack, the
+    query chunks, the ring's stages (as many, from 2 to 8, as keep the
+    most blocks resident on an SM), a full and an empty mbarrier for each
+    stage and the 64 rows' lists and tails. f32 rows too wide for a
+    resident query block carry their query chunk in each stage instead.
+    The Python twin of the kernel source's ``mma_plan``; the library's
+    ``oryx_topk_partial_smem_bytes`` gives the same number."""
+    lists = 8 * ROWS_PER_BLOCK * (kb + _TAIL + 1)
+    fixed = (_SWIZZLE_ALIGN + feature_chunks(features, itemsize) * _QUERY_CHUNK_BYTES
+             + 16 * _MAX_STAGES + lists)
+    stage = _TILE_CHUNK_BYTES
+    if itemsize == 4 and fixed + 2 * _TILE_CHUNK_BYTES > MAX_SMEM:
+        fixed = _SWIZZLE_ALIGN + 16 * _MAX_STAGES + lists
+        stage = _TILE_CHUNK_BYTES + _QUERY_CHUNK_BYTES
+    stages, best = 2, 0
+    for s in range(_MAX_STAGES, 1, -1):
+        smem = fixed + s * stage
+        blocks = 0 if smem > MAX_SMEM else _SM_SMEM // (smem + _BLOCK_RESERVED)
+        if blocks > best:
+            stages, best = s, blocks
+    return fixed + stages * stage
+
+
+def tuned_blocks(features: int, itemsize: int, kb: int) -> tuple[int, int | None]:
+    """(rows, items) for a top-kb of rows of ``features`` items of
+    ``itemsize`` bytes: the cached table entry if one exists (the override,
+    an autotune winner or an earlier solve), else the ``ORYX_TOPK_BLOCKS``
+    override ("rows,items", two positive integers; ValueError otherwise),
+    else the solver's (ROWS_PER_BLOCK, None): the 64-row block and
+    plan_splits' wave on the launching card. The solver raises ValueError
+    where a block's shared memory cannot hold the rows."""
+    import os
+
+    key = block_key(features, itemsize, kb)
+    hit = _BLOCK_TABLE.get(key)
+    if hit is not None:
+        return hit
+    env = os.environ.get(BLOCKS_ENV)
+    if env:
+        try:
+            rows, items = (int(t) for t in env.split(","))
+        except ValueError:
+            rows = items = 0
+        if rows < 1 or items < 1:
+            raise ValueError(
+                f"{BLOCKS_ENV}={env!r}: want two positive integers, "
+                f"'rows,items'")
+        _BLOCK_TABLE[key] = (rows, items)
+        return rows, items
+    if _working_set_bytes(features, itemsize, kb) > MAX_SMEM:
+        raise ValueError(
+            f"{features} features: a top-{kb} block of {itemsize}-byte items "
+            f"needs {_working_set_bytes(features, itemsize, kb)} bytes of "
+            f"shared memory, more than a block's {MAX_SMEM}")
+    _BLOCK_TABLE[key] = (ROWS_PER_BLOCK, None)
+    return _BLOCK_TABLE[key]
+
+
+def block_rows(block_b: int) -> int:
+    """The query rows of a partial block for a requested ``block_b``: the
+    kernel compiles 64-row blocks only (wgmma M), so 64 or more gives 64
+    and fewer raises ValueError."""
+    if block_b < ROWS_PER_BLOCK:
+        raise ValueError(
+            f"block_b={block_b}: the partial kernel's blocks hold "
+            f"{ROWS_PER_BLOCK} query rows")
+    return ROWS_PER_BLOCK
+
+
+def split_length(block_i: int, n_items: int) -> int:
+    """The split length (items one block walks) of an explicit ``block_i``:
+    rounded DOWN to a power of two -- an operator shrinking the block gets
+    at most what they asked for, never a larger one -- at least MIN_SPLIT
+    and at most the power of two at or above ``n_items``. The JAX
+    package's rule, with the port's minimum of four tiles in place of one
+    lane tile."""
+    if block_i < 1:
+        raise ValueError(f"block_i must be positive, got {block_i}")
+    return max(MIN_SPLIT, min(_pow2_floor(block_i), _next_pow2(n_items)))
+
+
+def check_plan(b: int, kb: int, n_splits: int, split_len: int) -> None:
+    """Raise ValueError for a plan the kernels cannot take: more splits
+    than the merge takes (MAX_SPLITS), or, past one split, [S, B, kb]
+    partial lists larger than PARTIAL_BUDGET_BYTES."""
+    if n_splits > MAX_SPLITS:
+        raise ValueError(
+            f"{n_splits} splits of {split_len} items: the merge takes at "
+            f"most {MAX_SPLITS}")
+    need = 8 * n_splits * b * kb
+    if n_splits > 1 and need > PARTIAL_BUDGET_BYTES:
+        raise ValueError(
+            f"{n_splits} splits of {split_len} items: {need} bytes of "
+            f"partial lists for {b} rows at kb={kb}, past the budget of "
+            f"{PARTIAL_BUDGET_BYTES}")
+
+
+def _occupancy(y: torch.Tensor, kb: int,
+               lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(SMs, resident partial blocks per SM) of ``y``'s card for a top-kb
+    of ``y``'s rows: as many blocks as the partial kernel's shared memory
+    and registers allow there (asked of the CUDA runtime once per shape
+    and library). Only a card has one."""
+    if y.device.type != "cuda":
+        raise ValueError(
+            f"the wave-filling plan asks the card's occupancy; y is on "
+            f"{y.device}")
+    lib = _lib() if lib is None else bind(lib)
+    key = (id(lib), y.device.index, y.shape[1], kb, y.element_size())
     per_sm = _BLOCKS_PER_SM.get(key)
     if per_sm is None:
-        per_sm = _lib().oryx_topk_partial_blocks_per_sm(
+        per_sm = lib.oryx_topk_partial_blocks_per_sm(
             y.shape[1], kb, y.element_size())
         if per_sm < 0:
             raise RuntimeError(f"occupancy query failed: CUDA error {-per_sm}")
@@ -357,8 +534,33 @@ def launch_plan(b: int, y: torch.Tensor, kb: int) -> tuple[int, int]:
             raise ValueError(f"{y.shape[1]} features need more shared memory than a block has")
         _BLOCKS_PER_SM[key] = per_sm
     sm_count = torch.cuda.get_device_properties(y.device).multi_processor_count
-    rows, tile = block_geometry(y.dtype)
-    return plan_splits(b, y.shape[0], sm_count, per_sm, rows, tile)
+    return sm_count, per_sm
+
+
+def launch_plan(b: int, y: torch.Tensor, kb: int, *,
+                block_b: int | None = None, block_i: int | None = None,
+                lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(n_splits, split_len) of the partial kernel for ``b`` query rows
+    against the item matrix ``y``. The blocks not given come from the
+    table (``tuned_blocks``). An explicit split length -- an argument, the
+    ``ORYX_TOPK_BLOCKS`` override or an autotune winner -- follows the
+    round-down rule (``split_length``); the table's default is
+    ``plan_splits``' wave for ``y``'s card (``lib``: the kernel library
+    whose occupancy it asks, the checkout's by default). Raises
+    ValueError for a plan the kernels cannot take (``check_plan``)."""
+    t_bb, t_bi = tuned_blocks(y.shape[1], y.element_size(), kb)
+    rows = block_rows(t_bb if block_b is None else block_b)
+    block_i = t_bi if block_i is None else block_i
+    n_items = y.shape[0]
+    if block_i is None:
+        sm_count, per_sm = _occupancy(y, kb, lib)
+        _, tile = block_geometry(y.dtype)
+        plan = plan_splits(b, n_items, sm_count, per_sm, rows, tile)
+    else:
+        split_len = split_length(block_i, n_items)
+        plan = (-(-n_items // split_len), split_len)
+    check_plan(b, kb, *plan)
+    return plan
 
 
 def _check_tensors(*tensors) -> None:
@@ -467,28 +669,117 @@ def topk_merge(part_v, part_i, *, k: int, lib: ctypes.CDLL | None = None):
     return out_v, out_i
 
 
-def topk_dot_batch_cuda(xs, y, *, k: int, scales=None):
+def _answer(xs, y, *, k: int, scales, n_splits: int, split_len: int):
+    """The partial kernel over one plan, then the merge: the top-k of each
+    row (quantizing f32/bf16 queries for an int8 ``y``). On the CPU both
+    take their plain versions."""
+    sx = None
+    if scales is not None:
+        xs, sx = quantize_queries(xs)
+    part_v, part_i = topk_dot_partial(
+        xs.contiguous(), y, kb=_next_pow2(k), n_splits=n_splits,
+        split_len=split_len, scales=scales,
+    )
+    vals, idx = topk_merge(part_v, part_i, k=k)
+    if sx is not None:
+        vals = vals * sx[:, None]
+    return vals, idx
+
+
+def topk_dot_batch_cuda(xs, y, *, k: int, scales=None,
+                        block_b: int | None = None,
+                        block_i: int | None = None):
     """Top-k of xs @ y.T per row without materializing the score matrix.
 
     xs: [B, F] queries in y's type (bf16 or f32), or f32/bf16 queries for an
     int8 ``y`` with per-row f32 ``scales`` (scores become
     (q(xs) @ y.T) * scale * sx). Returns ([B, k] f32 values, [B, k] int32
     indices) in (value desc, index asc) order; slots past n_items hold
-    (-inf, -1). k <= 128. On the CPU: ``topk_dot_batch_reference``."""
+    (-inf, -1). k <= 128.
+
+    block_b/block_i default to the block table (``tuned_blocks``): the
+    64-row block and as many item splits as fill one wave of the card,
+    unless the ``ORYX_TOPK_BLOCKS`` override or an ``autotune_blocks``
+    winner set a split length. An explicit ``block_i`` is the split length,
+    rounded down (``split_length``); ``block_b`` below 64 raises.
+
+    On the CPU: ``topk_dot_batch_reference``, or, for an explicit
+    ``block_i``, that plan through the partial and merge kernels' plain
+    versions."""
     if k > MAX_K:
         raise ValueError(f"k must be <= {MAX_K}, got {k}")
-    if y.device.type == "cpu":
+    if y.device.type == "cpu" and block_i is None:
+        if block_b is not None:
+            block_rows(block_b)
         return topk_dot_batch_reference(xs, y, k=k, scales=scales)
-    sx = None
-    if scales is not None:
-        xs, sx = quantize_queries(xs)
+    n_splits, split_len = launch_plan(
+        xs.shape[0], y, _next_pow2(k), block_b=block_b, block_i=block_i)
+    return _answer(xs, y, k=k, scales=scales, n_splits=n_splits,
+                   split_len=split_len)
+
+
+# ---------------------------------------------------------------------------
+# autotune
+# ---------------------------------------------------------------------------
+
+def _plan_ms(fn, y: torch.Tensor, iters: int) -> float:
+    """ms of one call of ``fn``: on the card the median device time of
+    ``iters`` calls queued behind a spin (ops/timing.py ``device_ms``); on
+    the CPU the mean of ``iters`` calls by the host's clock."""
+    if y.device.type == "cuda":
+        from oryx_tpu_torch.ops.timing import device_ms
+
+        return device_ms(torch, fn, reps=iters, warmup=1)[0]
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def autotune_blocks(xs, y, *, k: int, scales=None,
+                    candidates=AUTOTUNE_BLOCK_I, iters: int = 5,
+                    readings: list | None = None) -> tuple[int, int | None]:
+    """Time the whole answer (``topk_dot_batch_cuda``'s partial kernel and
+    merge) under each candidate split length and under the wave-filling
+    plan, and lock the fastest into the block table under this matrix's
+    key, so every later dispatch of the key with default blocks launches
+    it. Returns the locked (rows, items); items None is the wave.
+    Candidates round down as an explicit ``block_i`` does (those giving
+    one plan are timed once); plans past the merge's or the partials'
+    budget (``check_plan``) are skipped before any launch. A launch that
+    fails raises: no candidate silently loses. On CPU tensors the plans
+    run through the plain versions, timed by the host's clock.
+    ``readings``, if given, gets one dict per plan: the request, its
+    splits and length, and its ms or why it was skipped. Meant for bench
+    and operator tooling -- never called on a request path."""
+    b, n_items = xs.shape[0], y.shape[0]
     kb = _next_pow2(k)
-    n_splits, split_len = launch_plan(xs.shape[0], y, kb)
-    part_v, part_i = topk_dot_partial(
-        xs.contiguous(), y, kb=kb, n_splits=n_splits, split_len=split_len,
-        scales=scales,
-    )
-    vals, idx = topk_merge(part_v, part_i, k=k)
-    if sx is not None:
-        vals = vals * sx[:, None]
-    return vals, idx
+    key = block_key(y.shape[1], y.element_size(), kb)
+    tuned_blocks(y.shape[1], y.element_size(), kb)  # raises if too wide
+    sm_count, per_sm = _occupancy(y, kb)
+    plans = {plan_splits(b, n_items, sm_count, per_sm): None}
+    for c in candidates:
+        split_len = split_length(c, n_items)
+        plans.setdefault((-(-n_items // split_len), split_len), c)
+    best, best_ms = None, None
+    for (n_splits, split_len), request in plans.items():
+        line = {"block_i": request, "splits": n_splits,
+                "split_len": split_len}
+        try:
+            check_plan(b, kb, n_splits, split_len)
+        except ValueError as e:
+            line["skipped"] = str(e)
+        else:
+            ms = _plan_ms(
+                lambda: _answer(xs, y, k=k, scales=scales, n_splits=n_splits,
+                                split_len=split_len), y, iters)
+            line["ms"] = ms
+            if best_ms is None or ms < best_ms:
+                best, best_ms = (n_splits, split_len, request), ms
+        if readings is not None:
+            readings.append(line)
+    if best is None:
+        raise ValueError(f"no candidate plan fits for {b} rows at kb={kb}")
+    _BLOCK_TABLE[key] = (ROWS_PER_BLOCK, None if best[2] is None else best[1])
+    return _BLOCK_TABLE[key]

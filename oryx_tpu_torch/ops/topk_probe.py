@@ -3,7 +3,11 @@ goes, and how two versions of their source compare.
 
     python3 -m oryx_tpu_torch.ops.topk_probe ablate
     python3 -m oryx_tpu_torch.ops.topk_probe ab --parent OLD_topk_dot.cu
+    python3 -m oryx_tpu_torch.ops.topk_probe floor
 
+``floor`` times the whole call (partial kernel and merge) under the
+wave-filling plan with a floor of 4 to 32 tiles a split, at the shapes of
+FLOOR_SHAPES, where a floor of up to 32 tiles changes the plan.
 ``ablate`` builds csrc/topk_dot.cu with one of its ``ORYX_PROBE_NO_*``
 switches set at a time and times each build's partial kernel for every
 type: without the dot (the wgmma products, or the f32 FMA loop; the TMA
@@ -12,7 +16,8 @@ without the selection (no compares: the loop, the loads and the products
 alone), without the insertion (the candidates are found but neither
 appended nor flushed). ``ab`` builds a parent source and the checkout's and
 times them in turns (parent, change, change, parent): the partial kernel,
-each build with its own one-wave split plan, with whether the top-k merged
+each build with the split plan serving launches at its occupancy
+(ops/topk.py ``launch_plan``), with whether the top-k merged
 from their partials is identical; then the merge kernel of each build on
 the same partials (the change's), with whether their outputs are identical
 and equal to the plain merge's. A parent whose library reports
@@ -48,9 +53,24 @@ SHAPES = (("serving", 512, 1_000_000, 50, 32),
           ("large-batch", 4096, 1_000_000, 50, 32),
           ("batch-64", 64, 1_000_000, 50, 32),
           ("wide", 64, 1_000_000, 250, 128),
-          ("single-row", 1, 1_000_000, 50, 10))
+          ("single-row", 1, 1_000_000, 50, 10),
+          ("seq", 512, 50_000, 32, 32))
 
 ABI2_F32_GEOMETRY = (32, 128)  # rows per block, items per tile
+
+# (name, B, I, F, k, type) for ``floor``: the seq app's dispatches (its
+# catalog at the GRU's width, from one row to 512), the recall gate's
+# corpus, the tied case of chip_smoke.py's CASES, and the serving catalog
+# at one row (a floor of up to 24 tiles leaves it alone: the control)
+FLOOR_SHAPES = (("seq", 512, 50_000, 32, 32, "bfloat16"),
+                ("seq-256", 256, 50_000, 32, 32, "bfloat16"),
+                ("seq-64", 64, 50_000, 32, 32, "bfloat16"),
+                ("seq-1", 1, 50_000, 32, 32, "bfloat16"),
+                ("gate", 256, 100_000, 50, 18, "bfloat16"),
+                ("gate", 256, 100_000, 50, 18, "int8"),
+                ("ties", 37, 50_000, 16, 25, "bfloat16"),
+                ("single-row", 1, 1_000_000, 50, 10, "bfloat16"))
+FLOOR_TILES = (4, 8, 12, 16, 24, 32)
 
 
 def _inputs(torch, gen, b, n, f, type_name):
@@ -84,21 +104,26 @@ def _abi2_launch(torch, lib, xs, y, scales, kb, n_splits, split_len):
 
 def time_partial(torch, lib, xs, y, scales, k):
     """(median ms, queued, partial values, partial indices, final values,
-    final indices) of one build's partial kernel on these inputs, launched with
-    its own one-wave split plan; the final top-k is the plain merge of its
-    partials."""
+    final indices) of one build's partial kernel on these inputs, launched
+    with the split plan serving launches (ops/topk.py ``launch_plan``: the
+    block table, by default one wave at this build's occupancy); the final
+    top-k is the plain merge of its partials. A version-2 build keeps its
+    own one-wave plan at its own f32 geometry."""
     kb = T._next_pow2(k)
     old = lib.oryx_topk_abi() < 3
     T.bind(lib)
-    rows, tile = (ABI2_F32_GEOMETRY if old and y.dtype == torch.float32
-                  else T.block_geometry(y.dtype))
-    per_sm = lib.oryx_topk_partial_blocks_per_sm(
-        xs.shape[1], kb, y.element_size())
-    if per_sm <= 0:
-        raise RuntimeError(f"occupancy query gave {per_sm}")
-    sm = torch.cuda.get_device_properties(y.device).multi_processor_count
-    n_splits, split_len = T.plan_splits(xs.shape[0], y.shape[0], sm, per_sm,
-                                        rows, tile)
+    if old:
+        rows, tile = (ABI2_F32_GEOMETRY if y.dtype == torch.float32
+                      else T.block_geometry(y.dtype))
+        per_sm = lib.oryx_topk_partial_blocks_per_sm(
+            xs.shape[1], kb, y.element_size())
+        if per_sm <= 0:
+            raise RuntimeError(f"occupancy query gave {per_sm}")
+        sm = torch.cuda.get_device_properties(y.device).multi_processor_count
+        n_splits, split_len = T.plan_splits(xs.shape[0], y.shape[0], sm,
+                                            per_sm, rows, tile)
+    else:
+        n_splits, split_len = T.launch_plan(xs.shape[0], y, kb, lib=lib)
 
     def launch():
         if old:
@@ -129,17 +154,51 @@ def merge_ab(torch, libs, order, pv, pi, k) -> dict:
     return out
 
 
+def floor_sweep(torch) -> None:
+    """One JSON line per FLOOR_SHAPES shape: each floor's plan and the
+    device ms of the whole call under it, in turns (floors ascending, then
+    descending) so that a drift in the card's speed shows."""
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, b, n, f, k, type_name in FLOOR_SHAPES:
+        xs, y, scales = _inputs(torch, gen, b, n, f, type_name)
+        if type_name == "int8":  # the wrapper quantizes f32 queries itself
+            xs = torch.randn(b, f, generator=gen, device="cuda")
+        kb = T._next_pow2(k)
+        _, per_sm = T._occupancy(y, kb)
+        plans = {t: T.plan_splits(b, n, sm, per_sm, min_tiles=t)
+                 for t in FLOOR_TILES}
+        line = {"shape": name, "type": type_name, "B": b, "I": n, "F": f,
+                "k": k, "blocks_per_sm": per_sm,
+                "device": torch.cuda.get_device_name(0),
+                "plans": {t: list(p) for t, p in plans.items()},
+                "ms": {t: [] for t in FLOOR_TILES}, "queued": True}
+        for t in FLOOR_TILES + FLOOR_TILES[::-1]:
+            ms, _, queued = device_ms(torch, lambda p=plans[t]: T._answer(
+                xs, y, k=k, scales=scales, n_splits=p[0], split_len=p[1]))
+            line["ms"][t].append(ms)
+            line["queued"] = line["queued"] and queued
+        print(json.dumps(line), flush=True)
+        del xs, y, scales
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     sub.add_parser("ablate")
+    sub.add_parser("floor")
     ab = sub.add_parser("ab")
     ab.add_argument("--parent", required=True, type=Path)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("topk_probe needs a CUDA card")
+    if args.cmd == "floor":
+        floor_sweep(torch)
+        return 0
     if args.cmd == "ablate":
         builds = {label: ("topk_dot", macros, None)
                   for label, macros in VARIANTS.items()}

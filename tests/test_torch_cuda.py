@@ -1091,3 +1091,84 @@ def test_concurrent_als_and_rdf_builds_on_the_card(cuda_device):
     assert results["als"].nan_rows == 0
     assert results["als"].auc > 0.70
     assert results["rdf_acc"] > 0.85
+
+
+# ---- the block table and autotune (ops/topk.py) on the card ---------------
+
+
+@pytest.fixture
+def fresh_table(monkeypatch):
+    monkeypatch.setattr(T, "_BLOCK_TABLE", {})
+    monkeypatch.delenv(T.BLOCKS_ENV, raising=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_working_set_equals_the_library_smem(cuda_device, dtype):
+    # the Python twin of mma_plan's shared memory, at every width up to
+    # past each type's widest and at every kb
+    lib = T._lib()
+    e = torch.empty((), dtype=dtype).element_size()
+    widths = list(range(1, 300)) + [450, 451, 600, 1000, 1024, 1025, 2048,
+                                    2049, 4096, 30_000, 65_535]
+    for kb in (1, 2, 4, 8, 16, 32, 64, 128):
+        widest = T.max_features(kb, dtype)
+        for f in widths + [widest, widest + 1]:
+            assert (T._working_set_bytes(f, e, kb)
+                    == lib.oryx_topk_partial_smem_bytes(f, kb, e)), (f, kb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_every_autotune_candidate_matches_plain(cuda_device, fresh_table,
+                                                dtype):
+    xs, y, scales = _inputs(dtype, cuda_device, n=20000, f=50, b=37)
+    k = 18
+    readings = []
+    locked = T.autotune_blocks(xs, y, k=k, scales=scales, iters=3,
+                               readings=readings)
+    timed = [r for r in readings if "ms" in r]
+    assert len(timed) >= 5 and timed[0]["block_i"] is None  # the wave first
+    best = min(timed, key=lambda r: r["ms"])
+    assert locked == (T.ROWS_PER_BLOCK,
+                      None if best["block_i"] is None else best["split_len"])
+    v_r, i_r = T.topk_dot_batch_reference(xs, y, k=k, scales=scales)
+    for r in timed[1:]:
+        assert T.launch_plan(37, y, 32, block_i=r["split_len"]) == (
+            r["splits"], r["split_len"])
+        T.reset_launches()
+        v, i = T.topk_dot_batch_cuda(xs, y, k=k, scales=scales,
+                                     block_i=r["split_len"])
+        torch.cuda.synchronize()
+        assert T.LAUNCHES == {"topk_dot_partial": 1, "topk_merge": 1}
+        if dtype == torch.int8:
+            assert torch.equal(v, v_r) and torch.equal(i, i_r)
+        else:
+            _close(v, v_r, dtype, 50)
+            assert (i == i_r).float().mean().item() > 0.99
+
+
+def test_override_changes_the_next_launch_plan(cuda_device, fresh_table,
+                                               monkeypatch):
+    xs, y, _ = _inputs(torch.bfloat16, cuda_device, n=20000, f=50, b=37)
+    wave = T.launch_plan(37, y, 32)
+    assert wave == T.plan_splits(37, 20000, T._occupancy(y, 32)[0],
+                                 T._occupancy(y, 32)[1])
+    seen = []
+    partial = T.topk_dot_partial
+
+    def spy(xs, y, **kw):
+        seen.append((kw["n_splits"], kw["split_len"]))
+        return partial(xs, y, **kw)
+
+    monkeypatch.setattr(T, "topk_dot_partial", spy)
+    T.topk_dot_batch_cuda(xs, y, k=18)
+    monkeypatch.setenv(T.BLOCKS_ENV, "64,3000")
+    T.topk_dot_batch_cuda(xs, y, k=18)  # the cached entry still wins
+    T._BLOCK_TABLE.clear()
+    v, i = T.topk_dot_batch_cuda(xs, y, k=18)
+    assert seen == [wave, wave, (10, 2048)]
+    v_r, i_r = T.topk_dot_batch_reference(xs, y, k=18)
+    _close(v, v_r, torch.bfloat16, 50)
+    monkeypatch.setenv(T.BLOCKS_ENV, "32,3000")
+    T._BLOCK_TABLE.clear()
+    with pytest.raises(ValueError, match="block_b"):
+        T.topk_dot_batch_cuda(xs, y, k=18)

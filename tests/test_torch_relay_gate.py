@@ -311,6 +311,41 @@ def test_cache_stable_across_restarts_and_capped(tmp_path, monkeypatch):
     assert r3.resolve(refs[2])  # newest survives
 
 
+def test_cache_eviction_ranks_tied_stamps_by_use(tmp_path, monkeypatch):
+    """Two cache dirs whose stamps tie (a coarse file-system clock touched
+    both within one tick) still rank by use: a resolve stamps its dir
+    strictly above every stamp under the root, so the dir used last
+    survives the next eviction even while the clock has not left that
+    tick."""
+    art = _sample_artifact()
+    prod = _CaptureProducer()
+    refs = [str(tmp_path / f"gen-{g}") for g in range(3)]
+    for ref in refs:
+        publish_model_ref(prod, art.to_string(), ref, max_message_size=4096)
+    chunks: dict[str, list[str]] = {}
+    for k, m in prod.sent:
+        if k == CHUNK_KEY:
+            chunks.setdefault(json.loads(m)["ref"], []).append(m)
+    monkeypatch.setattr(ArtifactRelay, "MAX_CACHED", 2)
+    relay = _relay(tmp_path)
+    for m in chunks[refs[0]] + chunks[refs[1]]:
+        relay.offer(m)
+    dirs = [Path(relay.resolve(ref)) for ref in refs[:2]]
+    # both dirs carry the same stamp, and the clock the stamp reads is
+    # pinned to that tick
+    tick = time.time_ns() + 60 * 10**9
+    for d in dirs:
+        os.utime(d, ns=(tick, tick))
+    monkeypatch.setattr(time, "time_ns", lambda: tick)
+    relay.resolve(refs[0])  # the older dir is used again
+    for m in chunks[refs[2]]:
+        relay.offer(m)
+    assert relay.resolve(refs[0]) == str(dirs[0])
+    assert relay.resolve(refs[2])
+    with pytest.raises(OSError):
+        relay.resolve(refs[1])  # the least recently used went
+
+
 def test_oversized_pending_is_never_self_evicted(tmp_path, monkeypatch):
     """An artifact bigger than the pending cap still assembles — only
     OTHER refs' stale chunks are evicted."""
