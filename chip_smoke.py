@@ -1529,16 +1529,16 @@ def quantile(vals: list, q: float) -> float:
     return vals[min(len(vals) - 1, int(q * len(vals)))]
 
 
-TIMELINE_PIECES = ("wait", "stage", "issue", "sync", "distribute")
-
-
-def timeline_pieces(timeline, t_a: float, t_b: float) -> dict:
-    """Seconds of each piece of the batcher's dispatcher timeline that
-    fall inside [t_a, t_b] (time.monotonic)."""
-    pieces = dict.fromkeys(TIMELINE_PIECES, 0.0)
-    for piece, t0, t1 in list(timeline):
-        pieces[piece] += max(0.0, min(t1, t_b) - max(t0, t_a))
-    return pieces
+def piece_seconds(batcher) -> tuple[dict, float]:
+    """The batcher's dispatcher seconds by piece (``seconds_by_piece``,
+    always on, serving/batcher.py) with its open piece counted up to now,
+    and now (time.monotonic). Read while the dispatcher waits between
+    bursts, the difference of two readings tiles the time between them,
+    with tracing off."""
+    now = time.monotonic()
+    out = dict(batcher.seconds_by_piece)
+    out[batcher._piece] += now - batcher._piece_t0
+    return out, now
 
 
 def burn_captures(flight_dir: str, since_wall: float) -> int:
@@ -1608,7 +1608,7 @@ def start_http_layer(mode: str, path: str, extra: dict | None = None):
     return layer, config, broker, topics, update, start_s, ready_s
 
 
-def dispatch_cycle(recs: list, pa, timeline) -> dict:
+def dispatch_cycle(recs: list, pa, before: tuple, after: tuple) -> dict:
     """Where the burst's dispatch cycles went, from the batcher's own
     accounting. The window runs from the burst's first launch to its last
     results on the host. Dispatch seconds (common/perfstats.py records)
@@ -1616,10 +1616,11 @@ def dispatch_cycle(recs: list, pa, timeline) -> dict:
     which spans the idle time before the burst, is left out) are the
     card's view: with the depth-1 pipeline a dispatch's interval spans
     the next cycle, so the two overlap and are not summed. The share is
-    built from the dispatcher thread's timeline instead (serving/
-    batcher.py): its pieces run in sequence on one thread, each is
-    clipped to the window, and their sum over the window is the share
-    of the burst the loop accounts for; the rest is its bookkeeping."""
+    built from the dispatcher thread's pieces instead: ``before`` and
+    ``after`` are ``piece_seconds`` readings around the burst, so the
+    pieces tile the thread from one reading to the other (their wait
+    includes the burst's lead-in and tail), and their sum over that span
+    is the share the loop accounts for (1 less what a reading races)."""
     recs = sorted(recs, key=lambda r: r.t_start)
     t_a = recs[0].t_start
     t_b = max(r.t_start + r.wall_s for r in recs)
@@ -1627,7 +1628,8 @@ def dispatch_cycle(recs: list, pa, timeline) -> dict:
     by_cause = {c: gaps.get(c, 0.0) for c in (
         "empty_queue", "host_serialize", "compile_stall", "failover_backoff",
         "unattributed")}
-    pieces = timeline_pieces(timeline, t_a, t_b)
+    (s0, r0), (s1, r1) = before, after
+    pieces = {k: v - s0[k] for k, v in s1.items()}
     walls = sorted(r.wall_s for r in recs)
     window = t_b - t_a
     return {
@@ -1638,7 +1640,8 @@ def dispatch_cycle(recs: list, pa, timeline) -> dict:
         "idle_gap_seconds": by_cause,
         "window_s": window,
         "dispatcher_seconds": pieces,
-        "accounted_share": sum(pieces.values()) / window,
+        "pieces_span_s": r1 - r0,
+        "accounted_share": sum(pieces.values()) / (r1 - r0),
         "mean_cycle_ms": window / len(recs) * 1e3,
         "mean_piece_ms": {k: v / len(recs) * 1e3 for k, v in pieces.items()},
     }
@@ -1665,11 +1668,13 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
         paths = [f"/recommend/u{int(u)}?howMany={HOW_MANY}" for u in users]
         d0, c0 = batcher.dispatches, batcher.coalesced
         mark = quality_mark()  # the sampler at the layer's default rate
+        before = piece_seconds(batcher)
         t_burst, t_wall = time.monotonic(), time.time()
         T.reset_launches()  # the main path's window opens
         rows = http_burst(port, paths)
         torch.cuda.synchronize()
         launches = dict(T.LAUNCHES)  # ... and closes
+        after = piece_seconds(batcher)
         captures = burn_captures(
             config.get_string("oryx.monitoring.flight.dir"), t_wall)
         recs = [r for r in get_perfstats().records_since(t_burst)
@@ -1691,7 +1696,7 @@ def http_mode(torch, np, T, mode, path, model_data, users, exact_rows) -> dict:
               f"{len(recs)} dispatch records for {dispatches} dispatches")
         check(all(r.score_mode == mode and r.occupancy == 1.0 for r in recs),
               "a dispatch record with another mode or occupancy")
-        cycle = dispatch_cycle(recs, get_perfattr(), batcher.timeline)
+        cycle = dispatch_cycle(recs, get_perfattr(), before, after)
         check(0.0 < cycle["accounted_share"] <= 1.0 + 1e-9,
               f"dispatcher pieces overlap: share {cycle['accounted_share']}")
         known = model_data["known_idx"]
@@ -5249,7 +5254,7 @@ AB_VARIANTS = {
     "c": ("change", None),
     "p": ("parent", None),
     # the batcher's per-dispatch accounting: peak lookup, idle-gap
-    # classification and records, dispatch records, the timeline
+    # classification and records, dispatch records, the piece stamps
     "a": ("change", "accounting"),
     # the wedge watchdog's thread and the per-request device-span work
     "w": ("change", "watchdog"),
@@ -5276,13 +5281,7 @@ def ab_switch_off(what: str) -> None:
         B._PA = SimpleNamespace(record_idle_gap=noop)
         B.classify_idle_gap = lambda *_a, **_k: {}
         B.TopKBatcher._peak_for_matrix = noop
-        init = B.TopKBatcher.__init__
-
-        def init_without_timeline(self, *a, **k):
-            init(self, *a, **k)
-            self.timeline = SimpleNamespace(append=noop)
-
-        B.TopKBatcher.__init__ = init_without_timeline
+        B.TopKBatcher._enter = noop
     elif what == "watchdog":
         B.TopKBatcher._ensure_watchdog = noop
         B._Pending.finish_dev_span = noop
@@ -5322,9 +5321,10 @@ def ab_run(root: Path, label: str, variant: str) -> None:
             try:
                 batcher = TopKBatcher.shared()
                 d0, c0 = batcher.dispatches, batcher.coalesced
-                t_m0, t_wall = time.monotonic(), time.time()
+                timed = label == "change" and what != "accounting"
+                before = piece_seconds(batcher) if timed else None
+                t_wall = time.time()
                 rows = http_burst(layer.port, paths)
-                t_m1 = time.monotonic()
                 check(all(r[1] == 200 for r in rows), "non-200 in the burst")
                 dispatches = batcher.dispatches - d0
                 wall = max(r[3] for r in rows) - min(r[2] for r in rows)
@@ -5337,17 +5337,15 @@ def ab_run(root: Path, label: str, variant: str) -> None:
                     "mean_batch": (batcher.coalesced - c0) / dispatches,
                     "mean_cycle_ms": wall / dispatches * 1e3,
                 }
-                timeline = getattr(batcher, "timeline", None)
-                if label == "change" and what != "accounting":
-                    # the dispatcher's pieces from its first launch to its
-                    # last results on the host, ms per dispatch
-                    tl = [x for x in timeline if t_m0 <= x[1] and x[2] <= t_m1]
-                    t_a = min(t0 for p, t0, _ in tl if p == "stage")
-                    t_b = max(t1 for p, _, t1 in tl if p == "sync")
-                    pieces = timeline_pieces(tl, t_a, t_b)
+                if timed:
+                    # the dispatcher's always-on seconds by piece over the
+                    # burst, ms per dispatch, and the share of the burst
+                    # they account for; no tracing, so the runs compare alike
+                    (s0, r0), (s1, r1) = before, piece_seconds(batcher)
+                    pieces = {k: v - s0[k] for k, v in s1.items()}
                     out["piece_ms"] = {k: v / dispatches * 1e3
                                        for k, v in pieces.items()}
-                    out["accounted_share"] = sum(pieces.values()) / (t_b - t_a)
+                    out["accounted_share"] = sum(pieces.values()) / (r1 - r0)
                     out["burn_captures"] = burn_captures(
                         config.get_string("oryx.monitoring.flight.dir"),
                         t_wall)

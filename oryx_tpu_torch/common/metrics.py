@@ -555,6 +555,131 @@ def torch_trace(trace_dir: str, name: str) -> Iterator[str | None]:
             log.warning("profile trace for %s not written", name, exc_info=True)
 
 
+# In the name of torch.cuda._sleep's kernel: the marker a profiled window
+# launches as it opens, to align the card's clock with the host's.
+MARKER_KERNEL = "spin_kernel"
+
+
+def align_profiler_events(events, mark_ns: int | None,
+                          fallback_offset_ns: int) -> tuple[list, int | None]:
+    """Profiler events onto ``time.monotonic`` nanoseconds. ``events`` are
+    (name, cat, on_device, lane, start_ns, end_ns, correlation) on the
+    profiler's clock (``correlation`` pairs a launch with its kernel);
+    ``mark_ns`` is the monotonic reading taken just before the marker
+    kernel's launch. The offset is the start of the host's launch call of
+    the first device event naming ``MARKER_KERNEL`` (the runtime event of
+    the same correlation; the marker kernel's own start where the trace
+    lacks it) less ``mark_ns``: the profiler puts the host's calls and the
+    card's operations on one clock, so the launch starts at ``mark_ns``
+    and every event keeps its distance from it. With no marker (no card,
+    or no mark) the profiler's clock is taken for the epoch's and
+    ``fallback_offset_ns`` (epoch less monotonic) is used. Returns the
+    shifted events, sorted by start, and the offset (None when the
+    fallback was used)."""
+    offset = None
+    if mark_ns is not None:
+        marker = next((e for e in events if e[2] and MARKER_KERNEL in e[0]),
+                      None)
+        if marker is not None:
+            launch = next((e for e in events
+                           if not e[2] and e[6] == marker[6]), marker)
+            offset = launch[4] - mark_ns
+    shift = fallback_offset_ns if offset is None else offset
+    out = sorted(((n, c, d, lane, a - shift, b - shift, corr)
+                  for n, c, d, lane, a, b, corr in events), key=lambda e: e[4])
+    return out, offset
+
+
+class ProfiledWindow:
+    """What ``profiled_window`` read back: ``events`` as
+    ``align_profiler_events`` returns them (device operations, and the
+    host's CUDA runtime calls), ``offset_ns``, ``mark_ns``, and
+    ``capture``, the tracer capture of the window's spans."""
+
+    def __init__(self):
+        self.events: list = []
+        self.offset_ns: int | None = None
+        self.mark_ns: int | None = None
+        self.capture = None
+
+
+def _profiler_events(prof) -> list:
+    """(name, cat, on_device, lane, start_ns, end_ns, correlation) of a
+    finished profiler's device operations (lane: the stream) and the
+    host's CUDA runtime calls (lane: the thread)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        start = e.start_ns()
+        end = start + e.duration_ns()
+        corr = int(e.correlation_id())
+        if str(e.device_type()).endswith("CPU"):
+            if name.startswith("cuda"):
+                out.append((name, "cuda_runtime", False,
+                            int(e.start_thread_id()), start, end, corr))
+            continue
+        low = name.lower()
+        cat = ("memcpy" if "memcpy" in low else
+               "memset" if "memset" in low else "kernel")
+        out.append((name, cat, True, int(e.device_resource_id()), start, end,
+                    corr))
+    return out
+
+
+@contextmanager
+def profiled_window() -> Iterator[ProfiledWindow]:
+    """``torch.profiler`` (host and card) and a tracer capture
+    (``Tracer.capture()``) around a block, the profiler's events read back
+    on the ``time.monotonic`` clock of the program's spans: on a card a
+    marker kernel (``torch.cuda._sleep``) is launched as the window
+    opens, under a ``profile.marker`` span, and aligns the two clocks
+    (``align_profiler_events``). The capture closes before the profiler
+    stops, so its spans end with the window and not with the profiler's
+    read-back. Yields a ``ProfiledWindow`` filled on exit; a profiler that
+    fails is logged and leaves its events empty, never breaking the block.
+    The caller holds PROFILER_LOCK."""
+    import logging
+
+    import torch
+
+    from oryx_tpu_torch.common.tracing import get_tracer
+
+    log = logging.getLogger(__name__)
+    tr = get_tracer()
+    win = ProfiledWindow()
+    on_card = torch.cuda.is_available()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda._sleep(1)  # loads its module: the trace's only marker is the real one
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        prof.__enter__()
+    except Exception:  # noqa: BLE001 - e.g. a profiler already active
+        log.warning("profiler did not start; the window runs untraced",
+                    exc_info=True)
+        with tr.capture() as win.capture:
+            yield win
+        return
+    epoch_minus_mono = time.time_ns() - time.monotonic_ns()
+    try:
+        with tr.capture() as win.capture:
+            if on_card:
+                torch.cuda.synchronize()
+                win.mark_ns = time.monotonic_ns()
+                torch.cuda._sleep(1000)
+                tr.record_interval("profile.marker", win.mark_ns / 1e9)
+                torch.cuda.synchronize()
+            yield win
+    finally:
+        try:
+            prof.__exit__(None, None, None)
+            win.events, win.offset_ns = align_profiler_events(
+                _profiler_events(prof), win.mark_ns, epoch_minus_mono)
+        except Exception:  # noqa: BLE001 - the traced work already ran
+            log.warning("profiler events not read", exc_info=True)
+
+
 @contextmanager
 def maybe_profile(profile_dir: str | None, name: str) -> Iterator[None]:
     """``torch_trace`` around a block when a profile dir is configured

@@ -25,16 +25,19 @@ dashboards read one vocabulary):
   construction. Always <= 1.0.
 - ``oryx_device_bytes_per_dispatch{kind}`` — approximate bytes the
   dispatch moved (operand streams + host transfers).
-- ``oryx_device_fallback_dispatches_total`` — host-fallback scoring
-  dispatches. Kept for the JAX package's API (``note_fallback``); this
-  package scores nothing on the host, so nothing counts into it.
+
+The JAX package's ``oryx_device_fallback_dispatches_total`` has no
+counterpart: this package scores nothing on the host (a wedge fails its
+requests with 503, counted by ``oryx_topk_device_failovers``).
 
 The record path is cheap (a handful of float ops + bounded-ring append +
 histogram observes) and always on. ``/debug/profile``
 (serving/resources/common.py) captures an on-demand window of these
-records — alongside a ``torch.profiler`` trace of the host and the card
-when ``oryx.monitoring.profile.dir`` is set — as a Perfetto-loadable
-artifact.
+records and of the program's spans (a ``Tracer.capture()``) as a
+Perfetto-loadable artifact; with ``oryx.monitoring.profile.dir`` set it
+also writes one Perfetto file of the window in which the card's
+operations (``torch.profiler``, aligned by a marker kernel) and the
+program's spans share the ``time.monotonic`` timebase.
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ from oryx_tpu_torch.common.metrics import (
     exponential_buckets,
     get_registry,
     linear_buckets,
-    torch_trace,
+    profiled_window,
 )
-from oryx_tpu_torch.common.tracing import get_tracer, wall_time_us
+from oryx_tpu_torch.common.tracing import chrome_trace, get_tracer, wall_time_us
 
 # Rolling window (seconds) the live MFU / FLOP-rate gauges average over.
 DEFAULT_WINDOW_S = 60.0
@@ -142,7 +145,7 @@ class DispatchRecord:
 
 class PerfStats:
     """Process-wide dispatch-cost accounting: bounded record ring, rolling
-    MFU, fallback-window suppression, and profile-window capture.
+    MFU, and profile-window capture.
 
     The profile guard (``_capture_lock``) is metrics.PROFILER_LOCK, the one
     that ``maybe_profile`` takes: one process holds one torch profiler.
@@ -171,11 +174,6 @@ class PerfStats:
         # assumed-peak-flops) stands in where no honest card peak exists.
         self._peak: dict[str, float | None | type(...)] = {}
         self.assumed_peak_flops: float | None = None
-        # a device→host fallback zeroes the KIND's MFU gauge until this
-        # stamp: host-scored throughput must not wear the device's MFU
-        # figure (per kind — a serving failover must not also zero an
-        # unaffected co-resident train loop's gauge)
-        self._fallback_until: dict[str, float] = {}
         # /debug/profile knobs (oryx.monitoring.profile.*)
         self.profile_enabled = False
         self.profile_max_seconds = 30.0
@@ -272,24 +270,6 @@ class PerfStats:
             self._c_score_mode.inc(score_mode=score_mode)
         return rec
 
-    def note_fallback(self, n: int = 1, kind: str = "serving") -> None:
-        """n requests were scored on the host because the device path
-        failed (dispatch/transfer error or wedge failover). Counted, and
-        the KIND's MFU gauge is zeroed for one rolling window — host
-        throughput during the outage must not read as device
-        utilization (other kinds' gauges are unaffected)."""
-        if n <= 0:
-            return
-        self._c_fallback.inc(n)
-        self._fallback_until[kind] = time.monotonic() + self.window_s
-        from oryx_tpu_torch.common.flightrec import get_flightrec
-
-        # episode-limited: a sustained outage records one event per 5s,
-        # not one per degraded request
-        get_flightrec().record(
-            kind="fallback", episode_s=5.0, n=n, dispatch_kind=kind,
-        )
-
     def _prune_window(self, kind: str, now: float) -> None:  # holds _win_lock
         """Drop window entries older than window_s (caller holds
         _win_lock)."""
@@ -338,10 +318,8 @@ class PerfStats:
         return sum(r.occupancy for r in recs) / len(recs), len(recs)
 
     def mfu(self, kind: str) -> float:
-        """Rolling-window MFU in [0,1]; 0.0 during the kind's fallback
-        window; NaN when no peak (card or assumed) is known."""
-        if time.monotonic() < self._fallback_until.get(kind, 0.0):
-            return 0.0
+        """Rolling-window MFU in [0,1]; NaN when no peak (card or assumed)
+        is known."""
         peak = self.peak_for(kind)
         if not peak or peak <= 0:
             return float("nan")
@@ -351,39 +329,42 @@ class PerfStats:
 
     def capture_profile(self, seconds: float) -> dict:
         """Block for ``seconds`` capturing every dispatch record in the
-        window (plus, when tracing is enabled, the finished spans), and —
-        when ``oryx.monitoring.profile.dir`` is set — a ``torch.profiler``
-        trace of the host and the card written under that directory.
-        Returns a Perfetto-loadable Chrome trace-event dict with an
-        ``oryx`` meta block summarizing the window. Raises RuntimeError if
-        a capture, or ``maybe_profile``, already holds the profiler."""
+        window and, in a ``Tracer.capture()`` (tracing on for the window),
+        every span finished in it. With ``oryx.monitoring.profile.dir`` set,
+        a ``torch.profiler`` of the host and the card runs too, and one
+        Perfetto file of the window is written under that directory
+        (``write_profile``: the card's operations and the program's spans
+        on one ``time.monotonic`` timebase). Returns a Perfetto-loadable
+        Chrome trace-event dict of the records and spans (wall-clock
+        timebase) with an ``oryx`` meta block summarizing the window and
+        naming the file. Raises RuntimeError if a capture, or
+        ``maybe_profile``, already holds the profiler."""
         import os
 
         if not self._capture_lock.acquire(blocking=False):
             raise RuntimeError("a profile capture is already running")
         try:
-            t0 = time.monotonic()
-            trace_path = None
+            trace_path = dev = None
             if self.profile_dir:
-                with torch_trace(self.profile_dir, "ondemand") as trace_path:
+                with profiled_window() as dev:
                     time.sleep(max(0.0, seconds))
-                if trace_path is not None and not os.path.exists(trace_path):
-                    trace_path = None
+                cap = dev.capture
             else:
-                time.sleep(max(0.0, seconds))
-            recs = self.records_since(t0)
+                with get_tracer().capture() as cap:
+                    time.sleep(max(0.0, seconds))
+            recs = [r for r in self.records_since(cap.t0)
+                    if r.t_start <= cap.t1]
+            if dev is not None:
+                trace_path = os.path.join(
+                    self.profile_dir, f"ondemand-{int(time.time() * 1000)}.json")
+                try:
+                    write_profile(trace_path, recs, cap.spans, dev)
+                except OSError:
+                    trace_path = None
             pid = os.getpid()
             events = [r.chrome_event(pid) for r in recs]
-            tr = get_tracer()
-            spans = 0
-            if tr.enabled:
-                from oryx_tpu_torch.common.tracing import chrome_trace
-
-                window_spans = [
-                    s for s in tr.snapshot() if s.start >= t0
-                ]
-                events.extend(chrome_trace(window_spans)["traceEvents"])
-                spans = len(window_spans)
+            events.extend(chrome_trace(cap.spans)["traceEvents"])
+            spans = len(cap.spans)
             per_kind: dict[str, dict] = {}
             for r in recs:
                 agg = per_kind.setdefault(
@@ -396,7 +377,7 @@ class PerfStats:
                 agg["bytes"] += r.bytes_moved
                 agg["wall_s"] += r.wall_s
                 agg["occupancy_sum"] += r.occupancy
-            window = max(1e-9, time.monotonic() - t0)
+            window = max(1e-9, cap.t1 - cap.t0)
             summary = {}
             for kind, agg in per_kind.items():
                 peak = self.peak_for(kind)
@@ -423,6 +404,7 @@ class PerfStats:
                     "dispatch_records": len(recs),
                     "trace_spans": spans,
                     "torch_trace_path": trace_path,
+                    "device_offset_ns": dev.offset_ns if dev else None,
                     "by_kind": summary,
                 },
             }
@@ -456,13 +438,6 @@ class PerfStats:
                 "streams + host transfers), by kind",
                 buckets=BYTES_BUCKETS,
             )
-            self._c_fallback = reg.counter(
-                "oryx_device_fallback_dispatches_total",
-                "Host-fallback scoring dispatches after a device error or "
-                "wedge failover; each also zeroes oryx_device_mfu for one "
-                "rolling window (this package has no host path: a wedge "
-                "fails its requests, so this stays 0)",
-            )
             self._c_score_mode = reg.counter(
                 "oryx_score_mode_dispatches_total",
                 "Device top-k dispatches by serving score mode "
@@ -476,8 +451,8 @@ class PerfStats:
                 "oryx_device_mfu",
                 "Rolling-window achieved MFU (FLOP/s over the card's dense "
                 "peak at the dispatched type, "
-                "or oryx.monitoring.perf.assumed-peak-flops); 0 during a "
-                "host-fallback window, NaN when no peak is known",
+                "or oryx.monitoring.perf.assumed-peak-flops); NaN when no "
+                "peak is known",
                 labeled=True,
             )
             g_rate = reg.gauge(
@@ -494,6 +469,47 @@ class PerfStats:
                     (lambda k: lambda: self.achieved_flops_per_sec(k))(kind),
                     kind=kind,
                 )
+
+
+def write_profile(path: str, recs, spans, dev) -> None:
+    """One Perfetto (Chrome trace-event) file of a profile window, every
+    event on the ``time.monotonic`` timebase in microseconds: the
+    program's spans (process "host spans", a lane a thread), the dispatch
+    records (its lane 0, "dispatch records"), the card's operations (process
+    "device", a lane a stream) and the host's CUDA runtime calls (process
+    "cuda runtime"), the last two from ``dev`` (a ``ProfiledWindow``). A
+    device idle gap then lies under the host span that explains it."""
+    import json
+    import os
+
+    names = {1: "host spans", 2: "device", 3: "cuda runtime"}
+    events: list[dict] = [
+        {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+         "args": {"name": name}} for pid, name in names.items()]
+    events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": 0,
+                   "args": {"name": "dispatch records"}})
+    for s in spans:
+        events.append({
+            "name": s.name, "cat": "oryx", "ph": "X", "ts": s.start * 1e6,
+            "dur": max(0.0, s.duration) * 1e6, "pid": 1, "tid": s.tid,
+            "args": dict(s.attrs),
+        })
+    for r in recs:
+        ev = r.chrome_event(1)
+        ev.update(ts=r.t_start * 1e6, tid=0)
+        events.append(ev)
+    for name, cat, on_device, lane, start, end, corr in dev.events:
+        events.append({
+            "name": name, "cat": cat, "ph": "X", "ts": start / 1e3,
+            "dur": max(0, end - start) / 1e3, "pid": 2 if on_device else 3,
+            "tid": lane, "args": {"correlation": corr},
+        })
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"displayTimeUnit": "ms", "traceEvents": events,
+                   "oryx": {"timebase": "time.monotonic",
+                            "device_offset_ns": dev.offset_ns,
+                            "marker_ns": dev.mark_ns}}, f)
 
 
 _default = PerfStats()

@@ -22,6 +22,10 @@ to stages for exactly this reason. This module is the substrate:
   generation's context to the serving tier (common/freshness.py).
 - Export as a span forest (``/debug/traces``) or Chrome trace-event JSON
   (``?format=chrome``) that opens directly in Perfetto.
+- ``Tracer.capture()``: a window in which tracing is on and every finished
+  span is also kept whole, beside the ring, so a measured window keeps
+  its host timeline however many spans it makes (``/debug/profile``, a
+  benchmark's traced run). Span times are ``time.monotonic``.
 
 Tracing is OFF by default (``oryx.monitoring.tracing.enabled``); every
 instrumentation site guards on ``tracer.enabled``, so the disabled cost is
@@ -44,7 +48,8 @@ import os
 import re
 import threading
 import time
-from typing import NamedTuple
+from contextlib import contextmanager
+from typing import Iterator, NamedTuple
 
 _TRACEPARENT_RE = re.compile(
     r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
@@ -97,7 +102,9 @@ def _new_id(nbytes: int) -> str:
 class Span:
     """One timed operation. Finished child spans append themselves to
     ``children`` (bounded) so a slow-request log can print the breakdown
-    without scanning the ring."""
+    without scanning the ring. The list is made when the first child
+    finishes: a span is one object the interpreter's collector tracks,
+    not two, which a captured window of many spans pays for."""
 
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "parent",
@@ -122,7 +129,7 @@ class Span:
         self.attrs = attrs
         self.tid = threading.get_ident()
         self.seq = -1
-        self.children: list["Span"] = []
+        self.children: list["Span"] | None = None
 
     @property
     def duration(self) -> float:
@@ -136,6 +143,21 @@ class Span:
 
 
 _MAX_CHILDREN = 128  # per-span bound: a runaway handler can't grow a tree
+# makes a parent's children list, once, when children finish on two threads
+_CHILDREN_LOCK = threading.Lock()
+
+
+class Capture:
+    """The spans finished while a ``Tracer.capture()`` was open, in the
+    order they finished, and the window's monotonic edges (``t1`` is None
+    while it is open)."""
+
+    __slots__ = ("spans", "t0", "t1")
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.t0 = time.monotonic()
+        self.t1: float | None = None
 
 
 class Tracer:
@@ -161,6 +183,12 @@ class Tracer:
         self._cfg_lock = threading.Lock()
         self._buf: list[Span | None] = [None] * max(16, capacity)  # guarded-by: _cfg_lock (writes)
         self._seq = itertools.count()  # guarded-by: _cfg_lock (writes)
+        # the span lists of the open captures, rebound (never mutated) so
+        # _record reads one tuple lock-free; the enabled state before the
+        # first of them opened, restored when the last closes
+        self._captures: tuple[list, ...] = ()  # guarded-by: _cfg_lock (writes)
+        self._enabled_before = False  # guarded-by: _cfg_lock
+        self.last_capture: Capture | None = None
 
     @property
     def capacity(self) -> int:
@@ -177,7 +205,11 @@ class Tracer:
                 self._buf = [None] * max(16, capacity)
                 self._seq = itertools.count()
         if enabled is not None:
-            self.enabled = bool(enabled)
+            with self._cfg_lock:
+                if self._captures:  # takes effect when the last one closes
+                    self._enabled_before = bool(enabled)
+                else:
+                    self.enabled = bool(enabled)
         if slow_threshold is not ...:
             self.slow_threshold = (
                 float(slow_threshold) if slow_threshold is not None else None
@@ -238,13 +270,46 @@ class Tracer:
             self._record(s)
         return s
 
+    @contextmanager
+    def capture(self) -> Iterator[Capture]:
+        """Tracing on for the block, and every span finished inside it kept
+        in the yielded ``Capture`` with no bound (the ring still keeps its
+        last ``capacity``). On exit the enabled state goes back to what it
+        was before the first open capture, and the capture stays readable,
+        also as ``last_capture``. Captures may overlap, from any threads."""
+        cap = Capture()
+        with self._cfg_lock:
+            if not self._captures:
+                self._enabled_before = self.enabled
+            self._captures = self._captures + (cap.spans,)
+            self.enabled = True
+        try:
+            yield cap
+        finally:
+            with self._cfg_lock:
+                self._captures = tuple(
+                    c for c in self._captures if c is not cap.spans)
+                if not self._captures:
+                    self.enabled = self._enabled_before
+            cap.t1 = time.monotonic()
+            self.last_capture = cap
+
     def _record(self, span: Span) -> None:
         span.seq = next(self._seq)
         buf = self._buf
         buf[span.seq % len(buf)] = span
+        for spans in self._captures:
+            spans.append(span)
         p = span.parent
-        if p is not None and len(p.children) < _MAX_CHILDREN:
-            p.children.append(span)
+        if p is not None:
+            kids = p.children
+            if kids is None:
+                with _CHILDREN_LOCK:
+                    if p.children is None:
+                        p.children = []
+                    kids = p.children
+            if len(kids) < _MAX_CHILDREN:
+                kids.append(span)
 
     # -- reading -----------------------------------------------------------
 
@@ -271,7 +336,7 @@ class Tracer:
             return
         stages = ", ".join(
             f"{c.name}={c.duration * 1000.0:.1f}ms"
-            for c in span.children
+            for c in span.children or ()
             if c.end is not None
         )
         logger.warning(

@@ -29,12 +29,16 @@ launch) and device (launch to results on the host), and, with tracing
 on, ``batcher.queue_wait`` / ``batcher.device`` /
 ``batcher.compile_stall`` spans. Every resolved group records one
 ``DispatchRecord`` (common/perfstats.py: FLOPs, bytes, wall-clock, the
-peak of the dispatched type), every gap between dispatches is split by
-cause (``classify_idle_gap``) from slices the dispatcher stamps end to
-end (its waits, and its own host work between them), and the dispatcher
-thread logs its own loop as pieces that do not overlap
-(``TopKBatcher.timeline``). The accounting reads host clocks only: it
-adds no device synchronisation.
+peak of the dispatched type). The dispatcher thread's loop is cut into
+pieces that tile it (``PIECES``: each runs from its start to the next
+one's, so every instant of the thread is under exactly one), and one
+helper stamps each piece as it ends: its seconds into the always-on
+``seconds_by_piece`` (``oryx_topk_dispatcher_seconds_total{piece}``), a
+``batcher.<piece>`` span with tracing on (``TopKBatcher.timeline`` reads
+them from the tracer's latest capture), and its slice of the open idle
+gap between dispatches, which is then split by cause
+(``classify_idle_gap``). The accounting reads host clocks only: it adds
+no device synchronisation.
 
 A group whose dispatch fails gets the exception on every one of its
 futures, and there is no host fallback. The same holds for a wedge: a
@@ -49,7 +53,6 @@ back. No request is ever scored on the host.
 
 from __future__ import annotations
 
-import collections
 import logging
 import threading
 import time
@@ -102,8 +105,15 @@ DEVICE_TIMEOUT = 75.0
 COMPILE_TIMEOUT = 240.0
 PROBE_INTERVAL = 20.0
 
-# Pieces of the dispatcher thread's host timeline kept (TopKBatcher.timeline)
-TIMELINE_LEN = 8192
+# The dispatcher thread's pieces: "wait" on an empty queue; "stage" from
+# taking a batch to its launch (grouping, ledgers, the pinned query rows);
+# "issue" the wrapper's launches and copies; "sync" a group's event wait
+# and read-back; "distribute" its results to the futures. A piece lasts
+# until the next one starts, so the loop's bookkeeping counts under the
+# piece it follows.
+PIECES = ("wait", "stage", "issue", "sync", "distribute")
+_SPAN_NAMES = {p: "batcher." + p for p in PIECES}
+_PIECE_OF_SPAN = {v: k for k, v in _SPAN_NAMES.items()}
 
 
 class DeviceWedged(ShedLoad):
@@ -239,27 +249,24 @@ class TopKBatcher:
         # idle-gap attribution (common/perfattr.py): _gap_mark is when the
         # card was last known busy (dispatch issued / results on the host);
         # the accumulators hold measured slices of the idle time since —
-        # cond waits (empty queue), the dispatcher's own host work between
-        # its stamped waits, launches and syncs (pick, grouping, staging,
-        # result distribution, loop bookkeeping: host serialize), and the
-        # down window (failover backoff). _host_from is where the
-        # dispatcher's current host slice began. Classified and reset at
-        # the next launch, reset whenever results land.
-        self._gap_mark = time.monotonic()  # guarded-by: _lock
-        self._gap_wait = 0.0  # guarded-by: _lock
-        self._gap_host = 0.0  # guarded-by: _lock
+        # the "wait" pieces (empty queue), the "stage" and "distribute"
+        # pieces (host serialize), and the down window (failover backoff).
+        # Classified and reset at the next launch, reset whenever results
+        # land. The dispatcher thread alone writes the first three.
+        self._gap_mark = time.monotonic()
+        self._gap_wait = 0.0
+        self._gap_host = 0.0
         self._gap_down = 0.0  # guarded-by: _lock
-        self._host_from = self._gap_mark  # guarded-by: _lock
         self._down_since = 0.0  # guarded-by: _lock
-        # the dispatcher thread's host timeline: one (piece, t0, t1) per
-        # slice of its loop — "wait" (empty queue), "stage" (ledgers and
-        # the pinned query rows), "issue" (the wrapper's launches and
-        # copies), "sync" (the event wait for a group's results) and
-        # "distribute" (results to futures). One thread runs them in
-        # sequence, so they never overlap; what the window holds beyond
-        # their sum is the loop's own bookkeeping. deque.append is atomic.
-        self.timeline: collections.deque = collections.deque(
-            maxlen=TIMELINE_LEN)
+        # the dispatcher thread's open piece (PIECES), its start and the
+        # rows and k bucket it works on; seconds_by_piece sums the pieces
+        # ended so far. Dispatcher thread only (_enter).
+        self._piece = "wait"
+        self._piece_t0 = self._gap_mark
+        self._piece_rows = 0
+        self._piece_k = 0
+        self.seconds_by_piece = dict.fromkeys(PIECES, 0.0)
+        self._dispatcher_tids: set[int] = set()
         # dispatches / coalesced requests: coalesced / dispatches is the
         # achieved mean batch size
         self.dispatches = 0  # guarded-by: _lock (writes)
@@ -326,6 +333,14 @@ class TopKBatcher:
              lambda: float(self._peak_flops or 0.0)),
         ):
             reg.gauge(name, help_text).set_function(fn)
+        pieces = reg.counter(
+            "oryx_topk_dispatcher_seconds_total",
+            "seconds of the batcher's dispatcher thread by piece of its "
+            "loop (wait, stage, issue, sync, distribute); the pieces tile "
+            "the thread, so their sum is its running time", labeled=True)
+        for piece in PIECES:
+            pieces.set_function(
+                lambda piece=piece: self.seconds_by_piece[piece], piece=piece)
         # the kernels' own launch counts (ops/topk.py bumps them where it
         # launches), so a process that serves on the card shows it did
         launches = reg.counter(
@@ -431,26 +446,65 @@ class TopKBatcher:
             )
             self._watchdog.start()
 
+    @property
+    def timeline(self) -> list[tuple[str, float, float]]:
+        """This batcher's dispatcher pieces in the tracer's latest capture
+        (``Tracer.capture()``), as (piece, t0, t1) on ``time.monotonic``
+        in the order they ran; empty before any capture."""
+        cap = _TRACER.last_capture
+        if cap is None:
+            return []
+        tids = self._dispatcher_tids
+        return [(_PIECE_OF_SPAN[s.name], s.start, s.end) for s in cap.spans
+                if s.name in _PIECE_OF_SPAN and s.tid in tids]
+
+    def _enter(self, piece: str, t: float, rows: int = 0, k: int = 0) -> None:
+        """End the dispatcher thread's open piece at ``t`` and start
+        ``piece`` there (the same piece again only takes the new rows and
+        k). The ended piece adds its seconds to ``seconds_by_piece``, its
+        ``batcher.<piece>`` span with tracing on, and its part inside the
+        open idle gap to that gap's empty-queue ("wait") or host-serialize
+        ("stage", "distribute") slice. A superseded dispatcher stamps
+        nothing."""
+        if piece == self._piece:
+            self._piece_rows, self._piece_k = rows, k
+            return
+        if threading.current_thread() is not self._thread:
+            return
+        prev, t0 = self._piece, self._piece_t0
+        self.seconds_by_piece[prev] += t - t0
+        if _TRACER.enabled:
+            _TRACER.record_interval(_SPAN_NAMES[prev], t0, t,
+                                    rows=self._piece_rows, k=self._piece_k)
+        inside = t - max(t0, self._gap_mark)
+        if inside > 0.0:
+            if prev == "wait":
+                self._gap_wait += inside
+            elif prev != "issue" and prev != "sync":
+                self._gap_host += inside
+        self._piece, self._piece_t0 = piece, t
+        self._piece_rows, self._piece_k = rows, k
+
     def _run(self) -> None:
         me = threading.current_thread()
+        self._dispatcher_tids.add(me.ident)
+        self._piece, self._piece_t0 = "wait", time.monotonic()
         inflight: list[_Group] = []
         while True:
             with self._cond:
                 while not self._queue and not self._closed and not inflight:
-                    t_w = time.monotonic()
-                    self._charge_host(t_w)
+                    self._enter("wait", time.monotonic())
                     self._cond.wait()
-                    # empty-queue idle accounting for the gap classifier
-                    t_woke = time.monotonic()
-                    self._gap_wait += t_woke - t_w
-                    self._host_from = t_woke
-                    self.timeline.append(("wait", t_w, t_woke))
                 if self._closed and not self._queue and not inflight:
+                    self._enter("wait", time.monotonic())  # ends the last piece
                     return
                 if self._thread is not me:
                     # superseded after a wedge: whatever this thread still
                     # holds was failed by the watchdog
                     return
+                if self._queue:
+                    self._enter("stage", time.monotonic(),
+                                rows=min(len(self._queue), self.max_batch))
                 batch = self._queue[: self.max_batch]
                 self._queue = self._queue[self.max_batch:]
                 for p in batch:
@@ -479,15 +533,6 @@ class TopKBatcher:
                     if p.future.done():
                         self._inflight.pop(id(p), None)
             inflight = launched
-
-    def _charge_host(self, t: float) -> None:  # holds _lock
-        """End the dispatcher's current host slice at ``t``: its own work
-        since its last stamped wait, launch or sync (pick, grouping,
-        staging, result distribution, loop bookkeeping) is host work the
-        card idles behind, so the part inside the open gap goes to that
-        gap's host_serialize slice."""
-        self._gap_host += max(0.0, t - max(self._host_from, self._gap_mark))
-        self._host_from = t
 
     def _launch(self, batch: list[_Pending]) -> list[_Group]:
         """Issue one device dispatch per (matrix, k-bucket, recall) group
@@ -537,6 +582,7 @@ class TopKBatcher:
             self.flops_scored += flops
         tr = _TRACER
         t_launch = time.monotonic()
+        self._enter("stage", t_launch, rows=b, k=kb)
         for p in group:
             if p.ledger is not None:
                 p.ledger.add("queue_wait", t_launch - p.t_enq, start=p.t_enq)
@@ -560,8 +606,8 @@ class TopKBatcher:
         cold = on_cuda and not topk.library_loaded()
         t_disp = time.monotonic()
         causes: dict[str, float] = {}
+        self._enter("issue", t_disp, rows=b, k=kb)
         with self._lock:
-            self._charge_host(t_disp)
             if classify_gap:
                 # the idle gap between the previous dispatch finishing and
                 # this one being issued, split by measured cause
@@ -585,13 +631,9 @@ class TopKBatcher:
             event = torch.cuda.Event()
             event.record()
         t_issued = time.monotonic()
-        self.timeline.append(("stage", t_launch, t_disp))
-        self.timeline.append(("issue", t_disp, t_issued))
-        with self._lock:
-            # the card is busy from here: the next idle gap starts when
-            # its results land (_resolve)
-            self._gap_mark = max(self._gap_mark, t_issued)
-            self._host_from = t_issued
+        # the card is busy from here: the next idle gap starts when its
+        # results land (_resolve)
+        self._gap_mark = max(self._gap_mark, t_issued)
         if cold and tr.enabled:
             # this launch loaded the kernel library (ops/topk.py records
             # the compile and its idle gap); mark the stall in the trace
@@ -604,15 +646,13 @@ class TopKBatcher:
 
     def _resolve(self, g: _Group) -> None:
         try:
-            t_sync = time.monotonic()
-            with self._lock:
-                self._charge_host(t_sync)
+            self._enter("sync", time.monotonic(), rows=g.rows, k=g.kb)
             if g.event is not None:
                 g.event.synchronize()
             vals = g.vals.numpy()
             idx = g.idx.numpy()
             t_done = time.monotonic()
-            self.timeline.append(("sync", t_sync, t_done))
+            self._enter("distribute", t_done, rows=g.rows, k=g.kb)
             # results are on the host: record the dispatch's cost. The view
             # holds live rows only, so valid and capacity rows are equal.
             lead = g.requests[0]
@@ -633,7 +673,6 @@ class TopKBatcher:
                 if t_done > self._gap_mark:
                     self._gap_mark = t_done
                     self._gap_wait = self._gap_host = self._gap_down = 0.0
-                self._host_from = t_done
             for i, p in enumerate(g.requests):
                 p.finish_dev_span()
                 if p.ledger is not None:
@@ -645,7 +684,6 @@ class TopKBatcher:
                 try_set_result(
                     p.future, (vals[i, :k_eff].copy(), idx[i, :k_eff].copy())
                 )
-            self.timeline.append(("distribute", t_done, time.monotonic()))
         except Exception as e:
             log.exception("batcher group resolve failed (k=%d)", g.kb)
             for p in g.requests:

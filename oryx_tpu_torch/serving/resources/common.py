@@ -317,12 +317,14 @@ def register(app: ServingApp) -> None:
     def debug_profile(a: ServingApp, req: Request):
         """On-demand performance capture: blocks for ?seconds=N (clamped
         to oryx.monitoring.profile.max-seconds) recording every device
-        dispatch's cost (common/perfstats.py) — plus finished tracing
-        spans, and a torch.profiler trace of the host and the card into
-        oryx.monitoring.profile.dir when configured — and returns the
-        window as a downloadable Perfetto-loadable Chrome trace-event
-        artifact with an `oryx` summary block (per-kind FLOPs, bytes,
-        occupancy, window MFU, the torch trace's path). 403 until
+        dispatch's cost (common/perfstats.py) and, in a tracer capture,
+        every span finished in the window — plus, when
+        oryx.monitoring.profile.dir is configured, a torch.profiler of the
+        host and the card written there as one Perfetto file with the
+        spans on one time.monotonic timebase — and returns the window as
+        a downloadable Perfetto-loadable Chrome trace-event artifact with
+        an `oryx` summary block (per-kind FLOPs, bytes, occupancy, window
+        MFU, the file's path). 403 until
         oryx.monitoring.profile.enabled = true; 409 while another capture
         holds the (process-global) profiler."""
         from oryx_tpu_torch.common.perfstats import get_perfstats

@@ -27,6 +27,7 @@ from oryx_tpu_torch.api import ServingModelManager
 from oryx_tpu_torch.bus.api import ConsumeDataIterator, TopicProducer
 from oryx_tpu_torch.bus.broker import get_broker
 from oryx_tpu_torch.common.classutil import load_instance_of
+from oryx_tpu_torch.common import gcstats
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.perfattr import PhaseLedger, get_perfattr
 from oryx_tpu_torch.common.tracing import (
@@ -189,6 +190,9 @@ class ServingLayer:
         from oryx_tpu_torch.serving.batcher import TopKBatcher
 
         TopKBatcher.shared().configure(self.config)
+        # the interpreter's collections: counted by generation, and spans
+        # (runtime.gc) while tracing is on
+        gcstats.install()
         auth = make_authenticator(self.config)
         frontend = self.config.get_string("oryx.serving.api.server", "async")
         cert = self.config.get_string("oryx.serving.api.ssl-cert-file", None)

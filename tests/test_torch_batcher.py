@@ -162,9 +162,12 @@ def test_gauges_read_the_live_counters():
     assert float(values["oryx_topk_queue_depth"]) == 0
     # 2 x rows x items x features over every dispatch
     assert float(values["oryx_topk_flops_total"]) == 2.0 * 9 * 40 * 6
-    # the same series names as the JAX package's batcher exposes
+    # the same series names as the JAX package's batcher exposes, beside
+    # the port's own seconds of its dispatcher thread by piece
+    pieces = {f'oryx_topk_dispatcher_seconds_total{{piece="{p}"}}' for p in P.PIECES}
+    assert pieces <= set(values)
     jax_names = set(J.TopKBatcher.register_gauges.__code__.co_consts)
-    assert set(values) <= jax_names
+    assert set(values) - pieces <= jax_names
 
 
 def test_requests_stamp_their_phase_ledger():

@@ -463,10 +463,10 @@ def test_seq_valid_session_lines_matches_parse():
 def test_device_transfer_error_fails_over_to_host(tmp_path):
     """An injected device dispatch error, held to the port's contract
     (no host failover by design): the group's future fails with the
-    injected error, no host path runs (the fallback counter stays put and
-    the batcher has no host matrix to score), the card is not marked
-    down, and the device path serves the very next request exactly. The
-    name is the JAX twin's."""
+    injected error, no host path runs (no host-fallback family exists and
+    the batcher has no host matrix to score), the error is not a wedge (no
+    failover counted, the card is not marked down), and the device path
+    serves the very next request exactly. The name is the JAX twin's."""
     import torch
 
     from oryx_tpu_torch.common.faults import InjectedFault
@@ -477,15 +477,17 @@ def test_device_transfer_error_fails_over_to_host(tmp_path):
     )
     y = torch.from_numpy(host)
     vec = np.asarray([1.0, 2.0], dtype=np.float32)
-    fallbacks = get_registry().counter("oryx_device_fallback_dispatches_total")
-    f0 = fallbacks.value()
     b = TopKBatcher()
     try:
+        b.register_gauges()
         get_injector().arm("serving.device", kind="error", count=1)
         fut = b.submit_nowait(vec, 2, y)
         with pytest.raises(InjectedFault):
             fut.result(timeout=30)
-        assert fallbacks.value() == f0  # no host path ran
+        # no host path ran, and no wedge was declared
+        assert "oryx_device_fallback_dispatches" not in \
+            get_registry().render_prometheus()
+        assert get_registry().gauge("oryx_topk_device_failovers").value() == 0.0
         assert not hasattr(b, "host_fallbacks")
         assert not b._device_down.is_set()  # an error, not a wedge
         # the device path serves the next request, exactly
@@ -494,9 +496,10 @@ def test_device_transfer_error_fails_over_to_host(tmp_path):
         want = np.argsort(-scores, kind="stable")[:2]
         assert list(idx2) == list(want)
         np.testing.assert_allclose(vals2, scores[want], rtol=1e-6)
-        assert fallbacks.value() == f0
+        assert b.device_failovers == 0
     finally:
         b.close()
+        TopKBatcher.shared().register_gauges()
 
 
 # ---- fault class 5: batcher overload --------------------------------------

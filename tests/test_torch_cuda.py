@@ -656,6 +656,62 @@ def test_wedge_probe_and_dispatch_records_on_the_card(cuda_device, dtype,
     assert get_perfstats().peak_for("serving") == want
 
 
+def test_profile_file_aligns_the_card_to_the_host_spans(cuda_device, tmp_path):
+    """/debug/profile's one-timebase file (perfstats.capture_profile with a
+    profile dir) over a few dispatches: on an idle card the marker kernel
+    starts within 100 µs of its profile.marker span, and every top-k
+    partial kernel starts after the host's launch call of it and after the
+    batcher.issue span that made that call began."""
+    import json
+    import threading
+    import time
+
+    from oryx_tpu_torch.common.metrics import MARKER_KERNEL
+    from oryx_tpu_torch.common.perfstats import PerfStats
+    from oryx_tpu_torch.common.tracing import get_tracer
+    from oryx_tpu_torch.serving import batcher as B
+
+    xs, y, _ = _inputs(torch.bfloat16, cuda_device, n=200000, f=256, b=1)
+    b = B.TopKBatcher()
+    vec = np.random.default_rng(2).standard_normal(256).astype(np.float32)
+    b.submit(vec, 18, y)  # warm
+    ps = PerfStats()
+    ps.ensure_metrics()
+    ps.profile_dir = str(tmp_path)
+    got = {}
+
+    def capture():
+        got["art"] = ps.capture_profile(0.5)
+
+    t = threading.Thread(target=capture)
+    try:
+        t.start()
+        # the window opens (tracing on) and its marker runs on the idle card
+        deadline = time.monotonic() + 30
+        while not get_tracer().enabled and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.1)
+        for _ in range(20):
+            b.submit(vec, 18, y)
+        t.join(timeout=60)
+    finally:
+        b.close()
+    meta = got["art"]["oryx"]
+    assert meta["device_offset_ns"] is not None
+    with open(meta["torch_trace_path"], encoding="utf-8") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    marker = next(e for e in events if e["pid"] == 2 and MARKER_KERNEL in e["name"])
+    span = next(e for e in events if e["name"] == "profile.marker")
+    assert 0.0 <= marker["ts"] - span["ts"] < 100.0
+    launches = {e["args"]["correlation"]: e for e in events if e["pid"] == 3}
+    issues = sorted(e["ts"] for e in events if e["name"] == "batcher.issue")
+    kernels = [e for e in events if e["pid"] == 2 and "topk_dot_partial" in e["name"]]
+    assert len(kernels) >= 20
+    for k in kernels:
+        assert k["ts"] >= launches[k["args"]["correlation"]]["ts"]
+        assert any(i <= k["ts"] for i in issues)
+
+
 # ---------------------------------------------------------------------------
 # k-means and RDF ops on the card against the same functions on the CPU
 # ---------------------------------------------------------------------------

@@ -549,6 +549,13 @@ def test_record_dispatch_occupancy_degenerate_inputs():
 
 
 def test_mfu_nan_without_peak_and_zero_during_fallback(tmp_path, monkeypatch):
+    """The port has no host fallback to zero the gauge for: a wedged
+    dispatch fails its requests with 503 (DeviceWedged), counted by
+    oryx_topk_device_failovers, and the MFU of the window is left to read
+    what the card did. NaN without a peak, positive with one."""
+    from oryx_tpu_torch.common import faults
+    from oryx_tpu_torch.serving import batcher as B
+
     monkeypatch.setattr(flightrec.get_flightrec(), "dir", str(tmp_path))
     ps = _fresh(perfstats, window_s=0.2)
     ps.record_dispatch(
@@ -558,16 +565,33 @@ def test_mfu_nan_without_peak_and_zero_during_fallback(tmp_path, monkeypatch):
     assert math.isnan(ps.mfu("serving"))
     ps.assumed_peak_flops = 1e6
     assert ps.mfu("serving") > 0
-    ps.note_fallback(2)
-    assert ps.mfu("serving") == 0.0
-    time.sleep(0.25)
+    assert not hasattr(ps, "note_fallback")
+    b = B.TopKBatcher(device_timeout=0.2, probe_interval=30.0)
+    inj = faults.get_injector()
+    inj.arm("serving.device", kind="latency", latency_s=0.6)
+    try:
+        b.register_gauges()
+        with pytest.raises(B.DeviceWedged) as e:
+            b.submit(np.ones(4, np.float32), 2, torch_ones(8, 4))
+        assert e.value.status == 503
+        assert get_registry().gauge("oryx_topk_device_failovers").value() == 1.0
+    finally:
+        inj.disarm()
+        b.close()
+        B.TopKBatcher.shared().register_gauges()
     ps.record_dispatch(
         "serving", flops=1e5, bytes_moved=0, wall_s=0.001,
         rows=1, padded_rows=1, valid_rows=1, capacity_rows=1,
     )
-    assert ps.mfu("serving") > 0
+    assert ps.mfu("serving") > 0  # no fallback window zeroes it
     ps.note_peak("serving", 1e7)
     assert ps.peak_for("serving") == 1e7
+
+
+def torch_ones(*shape):
+    import torch
+
+    return torch.ones(shape, dtype=torch.float32)
 
 
 def _pump(ps, stop):
@@ -639,9 +663,12 @@ def test_metric_families_match_the_jax_package():
             jax_registry().histogram(name).buckets
     text = get_registry().render_prometheus()
     for family in ("oryx_score_mode_dispatches_total", "oryx_device_mfu",
-                   "oryx_device_flops_per_sec",
-                   "oryx_device_fallback_dispatches_total"):
+                   "oryx_device_flops_per_sec"):
         assert family in text
+    # the JAX package's host-fallback family has no source in the port
+    assert "oryx_device_fallback_dispatches_total" in \
+        jax_registry().render_prometheus()
+    assert "oryx_device_fallback_dispatches" not in text
 
 
 def test_train_als_records_a_train_dispatch():

@@ -110,11 +110,12 @@ def test_wedged_dispatch_fails_with_device_wedged(y, hook):
 def test_no_request_is_answered_from_a_host_path(y, hook):
     """The stuck call returns a real result once released, but its
     futures were already failed: nothing answers them late, and no
-    result ever comes from anywhere but topk_dot_batch."""
-    fallbacks = get_registry().counter("oryx_device_fallback_dispatches_total")
-    before = fallbacks.value()  # the registry is the process's: other tests count too
+    result ever comes from anywhere but topk_dot_batch. The wedge counts
+    on oryx_topk_device_failovers; the JAX package's host-fallback family
+    does not exist here."""
     b = P.TopKBatcher(device_timeout=0.3, probe_interval=30.0)
     try:
+        b.register_gauges()
         futs = [b.submit_nowait(VEC, 5, y) for _ in range(4)]
         for f in futs:
             with pytest.raises(P.DeviceWedged):
@@ -123,13 +124,17 @@ def test_no_request_is_answered_from_a_host_path(y, hook):
         time.sleep(0.3)
         for f in futs:
             assert isinstance(f.exception(), P.DeviceWedged)
-        # the port has no host-scoring counter to bump, and the JAX
-        # package's host-fallback family stays at zero
+        # the port has no host-scoring counter to bump: the 503 path is
+        # the failover gauge, and no host-fallback family is rendered
         assert not hasattr(b, "host_fallbacks")
-        assert fallbacks.value() == before
+        assert not hasattr(get_perfstats(), "note_fallback")
+        assert get_registry().gauge("oryx_topk_device_failovers").value() == 1.0
+        assert "oryx_device_fallback_dispatches" not in \
+            get_registry().render_prometheus()
         assert hook.calls == 1  # no probe yet, no other scoring call
     finally:
         b.close()
+        P.TopKBatcher.shared().register_gauges()
 
 
 def test_probe_brings_the_dispatch_back(y, hook):
@@ -313,23 +318,26 @@ def test_idle_gaps_are_classified_between_dispatches(y):
 
 
 def test_dispatcher_timeline_pieces_run_in_sequence(y):
-    """The dispatcher logs each slice of its loop once: per dispatch one
-    stage, issue, sync and distribute piece in that order, and a wait
-    while the queue is empty; no two pieces overlap, so their sum over a
-    window never exceeds it."""
+    """Inside a tracer capture the dispatcher's timeline holds each slice
+    of its loop once: per dispatch one stage, issue, sync and distribute
+    piece in that order, and a wait while the queue is empty; each piece
+    starts where the one before it ended, so they never overlap."""
+    from oryx_tpu_torch.common.tracing import get_tracer
+
     b = P.TopKBatcher()
-    try:
-        b.submit(VEC, 3, y)
-        time.sleep(0.1)  # the dispatcher waits on an empty queue
-        b.submit(VEC, 3, y)
-    finally:
-        b.close()
+    with get_tracer().capture():
+        try:
+            b.submit(VEC, 3, y)
+            time.sleep(0.1)  # the dispatcher waits on an empty queue
+            b.submit(VEC, 3, y)
+        finally:
+            b.close()
     tl = list(b.timeline)
     kinds = [k for k, _t0, _t1 in tl]
     assert [k for k in kinds if k != "wait"] == \
         ["stage", "issue", "sync", "distribute"] * 2
     for (_k, t0, t1), (_k2, u0, _u1) in zip(tl, tl[1:]):
-        assert t0 <= t1 <= u0
+        assert t0 <= t1 == u0
     waited = sum(t1 - t0 for k, t0, t1 in tl if k == "wait")
     assert waited >= 0.08
 
